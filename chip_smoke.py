@@ -2,34 +2,60 @@
 
   python3 chip_smoke.py [--detail PATH]
 
-1. Builds the three hand-written kernels from synthesis_in_style_tpu_torch/csrc
-   (nvcc, one process per source, all started together).
+1. Builds the three hand-written kernel libraries from
+   synthesis_in_style_tpu_torch/csrc (nvcc, one process per source, all
+   started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the dataset path gives it, with TF32 off for both:
-   fused bias-act at (16, 512) and (16, 256, 256, 128) in float32 and
+   shapes the two paths give it, with TF32 off for both: fused bias-act
+   forward and backward at (16, 512) and (16, 256, 256, 128) in float32 and
    bfloat16; the fused blur tail at the six upsample shapes of the 256px
    generator; connected components on random masks, on a 1-px snake and on
-   masks of the real path at (32, 256, 256), 4- and 8-connected, bit-identical.
-   Each kernel is timed beside its plain version and its bound.
-3. Holds the whole port at full 256px width against itself on the CPU (the
-   plain versions) for a batch of 2: generator image and activations, and the
-   device back half bit for bit.
-4. Drives the dataset CLI (`create_dataset_for_segmentation --device-contours`)
+   masks of the real path at (32, 256, 256), 4- and 8-connected,
+   bit-identical. Each kernel is timed beside its plain version, its bound
+   and (backward) the nearest PyTorch calls.
+3. Holds both autograd Functions (fused bias-act, fused blur tail) on the
+   card against the same Functions on the CPU, first and second order.
+4. Runs every step of one training iteration (D, R1, G, path length, EMA)
+   of the full-width 256px G and D at batch 2, float32, on the card and on
+   the CPU with the same draws, and holds the gradients of every parameter.
+5. Holds the whole dataset path at full 256px width against itself on the
+   CPU for a batch of 2: generator image and activations, and the device
+   back half bit for bit.
+6. Drives the dataset CLI (`create_dataset_for_segmentation --device-contours`)
    with a randomly initialised 256px StyleGAN2 (seeded torch.Generator), a
    synthetic catalog (centres from that generator's activations) and label
    map, batch 16, 32 images; once to warm up, once measured, with every
-   kernel's launch count set to 0 just before and read just after. cuDNN runs
-   this phase with PyTorch's defaults (TF32 convolutions).
+   kernel's launch count set to 0 just before and read just after.
+7. Drives the training CLI (`train_stylegan_2`) on the shipped
+   configs/stylegan/stylegan_256px.yaml (bfloat16, frozen noise on layers
+   0-5, the shipped regularization) with batch 16, 8 iterations and a
+   snapshot at 8, over 64 synthetic 256px pages: once to warm up, once
+   measured (launch counts set to 0 before, read after; finite losses, D and
+   G moved, the snapshot's g_ema loads through the dataset path's
+   `load_generator` and renders), once with every step synchronized and
+   timed for the split by step kind; then one more iteration under
+   torch.profiler (device busy share, kernels with the most device time).
+   Steps 6 and 7 run with PyTorch's defaults (TF32 cuDNN convolutions).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers, and {"ok": true, "device": {...}}. Any failed phase raises, and the
 script exits non-zero; without a CUDA device it exits 2 before any phase.
+On one card, with the long per-phase record written to a file:
+  python3 chip_smoke.py --detail chip_smoke_detail.json
+
+The same paths by hand: the training CLI
+  python -m synthesis_in_style_tpu_torch.cli.train_stylegan_2 \
+      configs/stylegan/stylegan_256px.yaml --images train.json -l <dir>
+and the dataset CLI on one of its snapshots (`<run>/checkpoints/iter_N.pt`).
+Their CPU counterparts, against the JAX package at small sizes:
+  JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -39,6 +65,7 @@ from pathlib import Path
 
 import torch
 
+SQRT2 = 2.0**0.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SEED = 0
@@ -131,6 +158,48 @@ def check_fused_bias_act(detail):
             "max_abs_err": worst}
 
 
+def check_fused_bias_act_bwd(detail):
+    """The backward kernel at the forward's shapes: y from the forward
+    kernel (so its signs are the path's), g random."""
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import (
+        fused_leaky_relu_bwd_cuda,
+        fused_leaky_relu_bwd_plain,
+        fused_leaky_relu_cuda,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst = 0.0
+    for shape in ((16, 512), (16, 256, 256, 128)):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype)
+            y = fused_leaky_relu_cuda(x, b)
+            grad = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            got = fused_leaky_relu_bwd_cuda(y, grad).float()
+            ref = fused_leaky_relu_bwd_plain(y, grad).float()
+            err = (got - ref).abs().max().item()
+            limit = tol * max(1.0, ref.abs().max().item())
+            if not err <= limit:
+                raise AssertionError(f"fused_bias_act_bwd {shape} {dtype}: err {err} > {limit}")
+
+            def library():  # the nearest PyTorch calls: two of them
+                return torch.ops.aten.leaky_relu_backward(grad, y, 0.2, True) * SQRT2
+
+            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": err, "tolerance": limit,
+                   "ms": bench_ms(lambda: fused_leaky_relu_bwd_cuda(y, grad)),
+                   "plain_ms": bench_ms(lambda: fused_leaky_relu_bwd_plain(y, grad)),
+                   "library_ms": bench_ms(library),
+                   # read y and g, write dx; a compare and a multiply per element
+                   **bound(3 * y.numel() * y.element_size(), 2 * y.numel())}
+            detail.append(row)
+            worst = max(worst, err)
+            log(f"fused_bias_act_bwd {row}")
+    main = next(r for r in detail if r["shape"] == [16, 256, 256, 128] and r["dtype"] == "float32")
+    return {**{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": worst}
+
+
 BLUR_SHAPES = ((8, 512), (16, 512), (32, 512), (64, 512), (128, 256), (256, 128))
 
 
@@ -166,6 +235,78 @@ def check_fused_blur(detail):
     main = detail[-1]  # the 256x256x128 layer, the largest
     return {**{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "max_abs_err": worst}
+
+
+def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.detach().cpu().double() - ref.detach().double()).abs().max()
+            / ref.detach().double().abs().max().clamp_min(1e-30)).item()
+
+
+def check_autograd_functions(detail) -> float:
+    """FusedLeakyReLUFunction and FusedBlurTailFunction on the card (kernels)
+    against the same Functions fed CPU copies (plain versions), first and
+    second order, TF32 off: L = sum(op(inputs) * t), its gradients (first
+    order), then the gradients of R = sum(v * dL/dx^2) + sum(u * dL/d(bias
+    or demod)) (second order, the R1 / path-length pattern). Relative
+    tolerance 1e-4 and 1e-3 of the largest reference value. An element whose
+    forward sign differs between kernel and plain version (a pre-activation
+    within rounding of 0: the blur kernel sums its taps in another order)
+    gets a zero cotangent and is left out of the gradient with respect to
+    the cotangent, so a flipped LeakyReLU branch does not enter the
+    comparison; the count of such elements is reported."""
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act
+    from synthesis_in_style_tpu_torch.ops.fused_act import fused_leaky_relu
+
+    g = torch.Generator().manual_seed(SEED + 8)
+    cases = [("bias_act", fused_leaky_relu,
+              lambda: [torch.randn((16, 256, 256, 128), generator=g),
+                       torch.randn((128,), generator=g)])]
+    for res, c in ((256, 128), (8, 512)):
+        cases.append((f"blur_{res}", blur_demod_noise_bias_act, lambda res=res, c=c: [
+            torch.randn((4, res + 1, res + 1, c), generator=g),
+            torch.rand((4, c), generator=g) + 0.5,
+            torch.randn((1, res, res), generator=g),
+            torch.randn((c,), generator=g)]))
+    worst = 0.0
+    for name, op, make in cases:
+        inputs = make()
+        with torch.no_grad():
+            y_card = op(*[a.cuda() for a in inputs]).cpu()
+            y_cpu = op(*inputs)
+        flipped = (y_card >= 0) != (y_cpu >= 0)
+        t = torch.randn(y_cpu.shape, generator=g).masked_fill_(flipped, 0.0)
+        v = torch.randn(inputs[0].shape, generator=g)
+        u = torch.randn(inputs[1].shape, generator=g)
+        out = {}
+        for device in ("cuda", "cpu"):
+            xs = [a.to(device).requires_grad_(True) for a in inputs]
+            tt = t.to(device).requires_grad_(True)
+            loss = (op(*xs) * tt).sum()
+            first = torch.autograd.grad(loss, xs, create_graph=True)
+            r = (v.to(device) * first[0] ** 2).sum() + (u.to(device) * first[1]).sum()
+            second = torch.autograd.grad(r, [xs[0], xs[1], tt], allow_unused=True)
+            out[device] = (first, second)
+        row = {"case": name, "shape": list(inputs[0].shape), "flipped": int(flipped.sum())}
+        # dR/dt of a flipped element carries that element's own branch
+        for device in out:
+            second = list(out[device][1])
+            second[2] = second[2].masked_fill(flipped.to(second[2].device), 0.0)
+            out[device] = (out[device][0], second)
+        for order, tol in ((0, 1e-4), (1, 1e-3)):
+            errs = []
+            for got, ref in zip(out["cuda"][order], out["cpu"][order]):
+                if ref is None or not ref.any():  # d/dx and d/db of the mask: 0
+                    if got is not None and got.any():
+                        raise AssertionError(f"{name} order {order + 1}: nonzero where 0")
+                    continue
+                errs.append(_rel(got, ref))
+            row[f"rel_err_order{order + 1}"] = max(errs)
+            if not max(errs) <= tol:
+                raise AssertionError(f"{name} order {order + 1}: rel err {max(errs)} > {tol}")
+            worst = max(worst, max(errs))
+        detail.append(row)
+        log(f"autograd Function {row}")
+    return worst
 
 
 def _snake(h: int, w: int) -> torch.Tensor:
@@ -308,12 +449,16 @@ def _invert(label_map: dict) -> dict:
 
 
 def counters():
-    from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import fused_leaky_relu_cuda
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import (
+        fused_leaky_relu_bwd_cuda,
+        fused_leaky_relu_cuda,
+    )
     from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act_cuda
     from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import cc_sweeps_cuda
 
-    return {"fused_bias_act": fused_leaky_relu_cuda, "fused_blur": blur_demod_noise_bias_act_cuda,
-            "segmented_cc": cc_sweeps_cuda}
+    return {"fused_bias_act": fused_leaky_relu_cuda,
+            "fused_bias_act_bwd": fused_leaky_relu_bwd_cuda,
+            "fused_blur": blur_demod_noise_bias_act_cuda, "segmented_cc": cc_sweeps_cuda}
 
 
 def reference_check(run: Path) -> torch.Tensor:
@@ -444,6 +589,237 @@ def check_outputs(save_to: Path) -> int:
     return len(pngs)
 
 
+# ---------------------------------------------------------------------------
+# training path
+
+
+class GradRecorder:
+    """Stands in for a GANOptimizer: keeps the gradients, moves nothing."""
+
+    def __init__(self, module):
+        self.names = [n for n, _ in module.named_parameters()]
+        self.grads = {}
+
+    def step(self, grads):
+        self.grads = dict(zip(self.names, grads))
+
+
+def check_training_iteration(detail) -> float:
+    """Every step of one training iteration (D, R1, G, path length, EMA) of
+    the full-width 256px G and D at batch 2, float32, TF32 off, with the same
+    draws: the card's gradients of every parameter against the CPU's
+    (plain versions), max abs difference <= 1e-3 x max|ref|, the largest
+    reference gradient of the step.
+    The D and G steps must reach every parameter, nonzero in every module."""
+    import copy
+
+    from synthesis_in_style_tpu_torch.models.factory import get_discriminator, get_generator
+    from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import (
+        GANTrainState, StyleGAN2Config, d_reg_step, d_step, draw_mix, draw_path, ema_step,
+        g_reg_step, g_step,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    gen = get_generator(CONFIG_256).init_weights(g)
+    disc = get_discriminator(CONFIG_256).init_weights(g)
+    cfg = StyleGAN2Config(freeze_noise_layers=tuple(range(6)))
+    real = torch.rand((2, 256, 256, 3), generator=g) * 2 - 1
+    draws = {"d_step": draw_mix(g, gen, 2, cfg), "g_step": draw_mix(g, gen, 2, cfg),
+             "g_reg_step": draw_path(g, gen, 2, cfg)}
+
+    def to(mix, device):
+        return type(mix)(mix.z1.to(device), mix.z2.to(device), mix.inject_index.to(device),
+                         [n.to(device) for n in mix.noise])
+
+    grads = {}
+    for device in ("cuda", "cpu"):
+        state = GANTrainState(copy.deepcopy(gen).to(device), copy.deepcopy(disc).to(device),
+                              copy.deepcopy(gen).to(device).requires_grad_(False),
+                              GradRecorder(gen), GradRecorder(disc), torch.zeros((), device=device))
+        pl_mix, pl_noise = draws["g_reg_step"]
+        metrics = {}
+        metrics.update(d_step(state, cfg, real.to(device), to(draws["d_step"], device)))
+        d_grads = state.d_optimizer.grads
+        metrics.update(d_reg_step(state, cfg, real.to(device)))
+        r1_grads = state.d_optimizer.grads
+        metrics.update(g_step(state, cfg, to(draws["g_step"], device)))
+        g_grads = state.g_optimizer.grads
+        metrics.update(g_reg_step(state, cfg, to(pl_mix, device), pl_noise.to(device)))
+        pl_grads = state.g_optimizer.grads
+        ema_step(state, cfg)
+        grads[device] = {"d_step": d_grads, "d_reg_step": r1_grads, "g_step": g_grads,
+                         "g_reg_step": pl_grads}
+        grads[device]["metrics"] = {k: float(v) for k, v in metrics.items()}
+    for step in ("d_step", "g_step"):  # these reach every parameter
+        modules = {}
+        for name, grad in grads["cuda"][step].items():
+            if grad is None:
+                raise AssertionError(f"{step}: no gradient for {name} on the card")
+            module = ".".join(name.split(".")[:2])
+            modules[module] = modules.get(module, False) or bool(grad.any())
+        dead = sorted(m for m, live in modules.items() if not live)
+        if dead:
+            raise AssertionError(f"{step}: all-zero gradients on the card in {dead}")
+    worst = 0.0
+    tol = 1e-3
+    for step in ("d_step", "d_reg_step", "g_step", "g_reg_step"):
+        pairs = []
+        for name, ref in grads["cpu"][step].items():
+            got = grads["cuda"][step][name]
+            if (ref is None) != (got is None):
+                raise AssertionError(f"{step} {name}: gradient on one device only")
+            if ref is not None:
+                pairs.append((name, got.cpu(), ref))
+        # max|ref| over the step's gradients: a parameter that barely moves
+        # the loss (R1 through conv_in's bias: only via minibatch stddev)
+        # has a gradient that is all rounding
+        scale = max(ref.abs().max().item() for _, _, ref in pairs)
+        step_worst, tensor_worst = 0.0, 0.0
+        for name, got, ref in pairs:
+            err = (got - ref).abs().max().item()
+            if not err <= tol * scale:
+                raise AssertionError(f"{step} {name}: card vs CPU {err} > {tol} x {scale}")
+            step_worst = max(step_worst, err / scale)
+            ref_max = ref.abs().max().item()
+            tensor_worst = max(tensor_worst, err / ref_max if ref_max else 0.0)
+        detail.append({"step": step, "max_err_over_max_ref": step_worst,
+                       "worst_per_tensor_rel_err": tensor_worst, "tolerance": tol})
+        worst = max(worst, step_worst)
+    for key, ref in grads["cpu"]["metrics"].items():
+        got = grads["cuda"]["metrics"][key]
+        if not abs(got - ref) <= 1e-3 * max(1.0, abs(ref)):
+            raise AssertionError(f"{key}: card {got} vs CPU {ref}")
+    log(f"training iteration 256px batch 2 card vs CPU: gradients max rel err {worst:.3g}; "
+        f"metrics {grads['cuda']['metrics']}")
+    return worst
+
+
+TRAIN_CONFIG = Path(__file__).resolve().parent / "configs" / "stylegan" / "stylegan_256px.yaml"
+TRAIN_OVERRIDES = {"batch_size": 16, "max_iter": 8, "snapshot_save_iter": 8}
+TRAIN_PAGES = 64
+STEP_NAMES = ("d_step", "d_reg_step", "g_step", "g_reg_step", "ema_step")
+
+
+def write_training_pages(root: Path) -> Path:
+    """64 synthetic 256px RGB pages (light background, dark strokes) from a
+    seeded numpy generator, their train.json, and the shipped 256px config
+    with the smoke's batch size and iteration counts, as JSON."""
+    import numpy as np
+    import yaml
+
+    from synthesis_in_style_tpu_torch.utils.png import write_png
+
+    data = root / "pages"
+    data.mkdir()
+    rs = np.random.default_rng(SEED)
+    names = []
+    for i in range(TRAIN_PAGES):
+        page = np.full((256, 256, 3), 235, np.uint8) + rs.integers(0, 20, (256, 256, 1), np.uint8)
+        for _ in range(12):  # text-like dark bars
+            y, x = rs.integers(8, 240), rs.integers(8, 128)
+            page[y:y + 4, x:x + rs.integers(32, 120)] = rs.integers(0, 80)
+        write_png(data / f"page_{i:03d}.png", page)
+        names.append(f"page_{i:03d}.png")
+    (data / "train.json").write_text(json.dumps(names))
+    config = {**yaml.safe_load(TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES}
+    (data / "config.json").write_text(json.dumps(config))
+    return data
+
+
+def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
+    """One run of the training CLI on the card. With `step_seconds` (a
+    dict), every step call is bracketed by synchronizes and its seconds
+    appended under its name."""
+    from synthesis_in_style_tpu_torch.cli import train_stylegan_2 as cli
+    from synthesis_in_style_tpu_torch.updaters import stylegan2_updater as upd
+
+    originals = {name: getattr(upd, name) for name in STEP_NAMES}
+    if step_seconds is not None:
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                step_seconds.setdefault(name, []).append(time.perf_counter() - t0)
+                return out
+            return run
+        for name, fn in originals.items():
+            setattr(upd, name, timed(name, fn))
+    try:
+        argv = [str(data / "config.json"), "--images", str(data / "train.json"),
+                "-l", str(log_dir), "-d", "cuda"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = cli.main(cli.resolve_log_dir(cli.build_parser().parse_args(argv)))
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(upd, name, fn)
+
+
+def profile_iteration(trainer, top: int = 12) -> dict:
+    """Two more training iterations: the first (8, with path length) fills
+    the loader again, the second (9: D, G, EMA, as 3 of every 4 iterations)
+    runs under torch.profiler: the device's busy share of its wall time, and
+    the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    updater = trainer.updater
+    updater.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        updater.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    updater.iterators["images"].close()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"iteration": updater.iteration - 1, "wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall,
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "device_s": e.self_device_time_total / 1e6} for e in kernels[:top]]}
+
+
+def check_training_run(trainer, log_dir: Path) -> dict:
+    """Finite losses, D and G moved from their seeded init, a snapshot whose
+    g_ema loads through the dataset path's load_generator and renders."""
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+    from synthesis_in_style_tpu_torch.models.factory import (
+        get_discriminator, get_generator, load_generator,
+    )
+
+    (run,) = (log_dir / "stylegan2").iterdir()
+    log_lines = [json.loads(line) for line in (run / "log.jsonl").read_text().splitlines()]
+    losses = {k: v for line in log_lines for k, v in line.items() if k.startswith("train/")}
+    if not losses or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"training losses not finite: {losses}")
+    config = load_config_from_checkpoint(next((run / "checkpoints").glob("*.pt")))
+    init = torch.Generator().manual_seed(int(config.get("seed", 0)))
+    fresh_g = get_generator(config).init_weights(init)
+    fresh_d = get_discriminator(config).init_weights(init)
+    state = trainer.updater.state
+    for name, fresh, trained in (("G", fresh_g, state.generator), ("D", fresh_d, state.discriminator)):
+        moved = sum(not torch.equal(a, b.cpu())
+                    for a, b in zip(fresh.parameters(), trained.parameters()))
+        if moved == 0:
+            raise AssertionError(f"{name}: no parameter moved")
+        log(f"{name}: {moved} of {len(list(fresh.parameters()))} parameter tensors moved")
+    snap = run / "checkpoints" / f"iter_{TRAIN_OVERRIDES['max_iter']:08d}.pt"
+    gen = load_generator(snap, config, device="cuda")
+    with torch.no_grad():
+        image, _ = gen([torch.randn((1, 512), device="cuda")], randomize_noise=False)
+    if image.shape != (1, 256, 256, 3) or not torch.isfinite(image).all():
+        raise AssertionError(f"snapshot g_ema renders {tuple(image.shape)}, finite "
+                             f"{bool(torch.isfinite(image).all())}")
+    log(f"snapshot {snap.name}: g_ema loads through load_generator and renders a 256px image")
+    return losses
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", type=Path, default=None,
@@ -466,9 +842,14 @@ def main() -> int:
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
     set_tf32(False)  # parity phases compare in full float32
-    detail = {"fused_bias_act": [], "fused_blur": [], "segmented_cc": []}
+    detail = {name: [] for name in ("fused_bias_act", "fused_bias_act_bwd", "fused_blur",
+                                    "segmented_cc", "autograd", "training_iteration")}
     kernels = {"fused_bias_act": check_fused_bias_act(detail["fused_bias_act"]),
+               "fused_bias_act_bwd": check_fused_bias_act_bwd(detail["fused_bias_act_bwd"]),
                "fused_blur": check_fused_blur(detail["fused_blur"])}
+    check_autograd_functions(detail["autograd"])
+    check_training_iteration(detail["training_iteration"])
+    fns = counters()
 
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -482,43 +863,84 @@ def main() -> int:
         path_masks = reference_check(run)
         kernels["segmented_cc"] = check_segmented_cc(detail["segmented_cc"], path_masks)
 
-        set_tf32(True)  # the path runs with PyTorch's default cuDNN TF32 convolutions
-        torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default for matmuls
+        # the paths run with PyTorch's defaults: TF32 cuDNN convolutions,
+        # float32 matmuls
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
         drive_path(run, root / "warmup")
-        fns = counters()
         for fn in fns.values():
             fn.launches = 0
         path = drive_path(run, root / "generated_images")
-        launches = {name: fn.launches for name, fn in fns.items()}
+        dataset_launches = {name: fn.launches for name, fn in fns.items()}
         n = check_outputs(root / "generated_images")
         stages = stage_times(run, root / "stages")
         log(f"per batch of {BATCH}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in stages.items() if k != "batch"))
+
+        pages = write_training_pages(root)
+        run_training_cli(pages, root / "train_warmup")
+        for fn in fns.values():
+            fn.launches = 0
+        trainer, train_wall = run_training_cli(pages, root / "train")
+        training_launches = {name: fn.launches for name, fn in fns.items()}
+        losses = check_training_run(trainer, root / "train")
+        iters = trainer.updater.iteration
+        step_seconds = {}
+        run_training_cli(pages, root / "train_timed", step_seconds)
+        iteration_profile = profile_iteration(trainer)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    log(f"path: {path['written']} images in {path['seconds']:.3f} s = "
+    for path_name, launches, needed in (
+            ("dataset", dataset_launches, ("fused_bias_act", "fused_blur", "segmented_cc")),
+            ("training", training_launches, ("fused_bias_act", "fused_bias_act_bwd",
+                                             "fused_blur"))):
+        for name in needed:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the {path_name} path")
+    log(f"dataset path: {path['written']} images in {path['seconds']:.3f} s = "
         f"{path['written'] / path['seconds']:.2f} images/s (batch {BATCH}, build_dataset "
-        f"wall time, warm); launches {launches}; {n} PNG pairs checked")
+        f"wall time, warm); launches {dataset_launches}; {n} PNG pairs checked")
+    batch = TRAIN_OVERRIDES["batch_size"]
+    training = {"iterations": iters, "batch": batch, "loop_seconds": trainer.seconds,
+                "cli_seconds": train_wall, "iterations_per_s": iters / trainer.seconds,
+                "images_per_s": iters * batch / trainer.seconds, "launches": training_launches,
+                "losses": losses,
+                "step_seconds_mean": {k: sum(v) / len(v) for k, v in step_seconds.items()},
+                "step_calls": {k: len(v) for k, v in step_seconds.items()},
+                "profile": iteration_profile}
+    log(f"training path (256px, batch {batch}, bf16, {iters} iterations): "
+        f"{training['iterations_per_s']:.3f} iterations/s = {training['images_per_s']:.2f} "
+        f"training images/s (train loop {trainer.seconds:.3f} s, whole CLI {train_wall:.3f} s, "
+        f"warm); launches {training_launches}")
+    log("seconds per step kind (mean per call, synchronized): " + ", ".join(
+        f"{k} {v:.4f} x{training['step_calls'][k]}"
+        for k, v in training["step_seconds_mean"].items()))
+    prof = training["profile"]
+    log(f"profiled iteration {prof['iteration']}: wall {prof['wall_s']:.4f} s, device busy "
+        f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+        "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s" for k in prof["top_kernels"]))
 
     sources = {"fused_bias_act": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:61"),
+               "fused_bias_act_bwd": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:87"),
                "fused_blur": ("csrc/fused_blur.cu", "ops/pallas/fused_blur.py:223"),
                "segmented_cc": ("csrc/segmented_cc.cu", "ops/pallas/segmented_cc.py:158")}
     rows = []
     for name, (src, tpu) in sources.items():
         k = kernels[name]
+        by_path = {"dataset": dataset_launches[name], "training": training_launches[name]}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
                      "replaces": f"synthesis_in_style_tpu/{tpu}",
-                     "launches": launches[name], "max_abs_err": k["max_abs_err"],
+                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                     "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": None})
+                     "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
     if cli.detail is not None:
         cli.detail.parent.mkdir(parents=True, exist_ok=True)
-        cli.detail.write_text(json.dumps({"card": smi, "kernels": rows, "detail": detail,
-                                          "path": {**path, "launches": launches, "stages": stages}}, indent=1))
+        cli.detail.write_text(json.dumps(
+            {"card": smi, "kernels": rows, "detail": detail,
+             "path": {**path, "launches": dataset_launches, "stages": stages},
+             "training": training}, indent=1))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,7 @@ require: without it, loading one raises a clear error.
 
 from __future__ import annotations
 
+import argparse
 import json
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
@@ -33,6 +34,28 @@ def load_config_file(path: Union[str, Path]) -> Dict[str, Any]:
     if path.suffix in (".yaml", ".yml"):
         return load_yaml_config(path)
     return load_json_config(path)
+
+
+def merge_config_and_args(config: Dict[str, Any], args: argparse.Namespace) -> Dict[str, Any]:
+    """Args win over config keys when the arg value is not None."""
+    merged = dict(config)
+    for key, value in vars(args).items():
+        if value is not None:
+            merged[key] = value
+    return merged
+
+
+def save_run_config(log_dir: Union[str, Path], config: Dict[str, Any],
+                    args: Optional[argparse.Namespace] = None) -> None:
+    """Write `<log_dir>/config/config.json` (and `args.json`), where
+    `load_config_from_checkpoint` finds them from a snapshot."""
+    config_dir = Path(log_dir) / "config"
+    config_dir.mkdir(parents=True, exist_ok=True)
+    with open(config_dir / "config.json", "w") as f:
+        json.dump(config, f, indent=2, default=str)
+    if args is not None:
+        with open(config_dir / "args.json", "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
 
 
 def get_config_dir_from_checkpoint(checkpoint_path: Union[str, Path]) -> Path:

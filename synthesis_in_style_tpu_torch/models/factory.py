@@ -1,5 +1,6 @@
-"""Generator factory and checkpoint-backed loading (counterpart of
-synthesis_in_style_tpu/models/factory.py, StyleGAN2 variant only)."""
+"""Generator and discriminator factories and checkpoint-backed loading
+(counterpart of synthesis_in_style_tpu/models/factory.py, StyleGAN2 variant
+only)."""
 
 from __future__ import annotations
 
@@ -8,26 +9,43 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from synthesis_in_style_tpu_torch.models.stylegan2 import Generator
+from synthesis_in_style_tpu_torch.models.stylegan2 import Discriminator, Generator
 from synthesis_in_style_tpu_torch.utils.checkpoint import load_generator_state
 
 # seed of the default noise buffers for a checkpoint that carries none
 NOISE_SEED = 1
 
 
-def get_generator(config: Dict[str, Any], variant: Optional[Union[str, int]] = None) -> Generator:
-    """Generator from a training config (`image_size`, `latent_size`,
-    `n_mlp`, `channel_multiplier`, `stylegan_variant`)."""
+def _check_variant(config: Dict[str, Any], variant: Optional[Union[str, int]]) -> None:
     variant = variant if variant is not None else config.get("stylegan_variant", 2)
     if str(variant) != "2":
         raise NotImplementedError(
             f"stylegan variant {variant!r} is not ported yet (see ROADMAP.md)"
         )
+
+
+def get_generator(config: Dict[str, Any], variant: Optional[Union[str, int]] = None) -> Generator:
+    """Generator from a training config (`image_size`, `latent_size`,
+    `n_mlp`, `channel_multiplier`, `stylegan_variant`)."""
+    _check_variant(config, variant)
     return Generator(
         size=config["image_size"],
         style_dim=config.get("latent_size", 512),
         n_mlp=config.get("n_mlp", 8),
         channel_multiplier=config.get("channel_multiplier", 2),
+    )
+
+
+def get_discriminator(
+    config: Dict[str, Any], variant: Optional[Union[str, int]] = None
+) -> Discriminator:
+    """Discriminator from a training config (`image_size`,
+    `channel_multiplier`, `input_dim`, `stylegan_variant`)."""
+    _check_variant(config, variant)
+    return Discriminator(
+        size=config["image_size"],
+        channel_multiplier=config.get("channel_multiplier", 2),
+        input_channels=config.get("input_dim", 3),
     )
 
 

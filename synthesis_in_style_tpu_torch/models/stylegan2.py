@@ -1,4 +1,4 @@
-"""StyleGAN2 generator in PyTorch (counterpart of the generator side of
+"""StyleGAN2 generator and discriminator in PyTorch (counterpart of
 synthesis_in_style_tpu/models/stylegan2.py).
 
 * Activations are NHWC tensors ((B, H, W, C), C contiguous): the layout of
@@ -16,7 +16,14 @@ synthesis_in_style_tpu/models/stylegan2.py).
   dict (the layout utils/checkpoint.py of the JAX package exports with
   `flax_generator_to_torch`): linear weight (out, in), modulated conv weight
   (1, out, in, kh, kw), input (1, C, 4, 4), ToRGB bias (1, 3, 1, 1), noise
-  buffers `noises.noise_i` (1, 1, H, W).
+  buffers `noises.noise_i` (1, 1, H, W). The discriminator keeps the
+  reference key layout too (`convs.0.*`, `convs.i.conv1/conv2/skip.*`,
+  `final_conv.*`, `final_linear.{0,1}.*`, a ConvLayer being a Sequential of
+  [Blur,] EqualConv2d [, activation]); its `final_linear.0` columns follow
+  the reference's NCHW flatten, so the forward flattens NCHW.
+* Every fused op is an autograd Function that runs its kernel on the card in
+  both directions (ops/fused_act.py, ops/cuda/fused_blur.py), so training
+  differentiates the same kernels, twice for R1 and path length.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from torch import nn
 
 from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act
 from synthesis_in_style_tpu_torch.ops.fused_act import fused_leaky_relu
-from synthesis_in_style_tpu_torch.ops.upfirdn2d import make_kernel, upsample_2d
+from synthesis_in_style_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d, upsample_2d
 
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -126,11 +133,15 @@ class NoiseInjection(nn.Module):
 
 
 class FusedLeakyReLU(nn.Module):
-    """Holds the StyledConv bias (reference name `activate.bias`)."""
+    """Bias + LeakyReLU * sqrt(2) (reference name `activate.bias` in a
+    StyledConv, which applies it inside its own fused tail)."""
 
     def __init__(self, channel: int):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(channel))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_leaky_relu(x, self.bias.to(x.dtype))
 
 
 class StyledConv(nn.Module):
@@ -209,6 +220,19 @@ class NoiseBuffers(nn.Module):
         return [getattr(self, f"noise_{i}").permute(0, 2, 3, 1) for i in range(self.num)]
 
 
+@torch.no_grad()
+def init_layer_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initializers for every equalized layer of `model`:
+    linear weights N(0, 1/lr_mul), conv and modulated conv weights N(0, 1);
+    biases keep their construction values."""
+    for module in model.modules():
+        if isinstance(module, EqualLinear):
+            module.weight.copy_(torch.randn(module.weight.shape, generator=generator)
+                                / module.lr_mul)
+        elif isinstance(module, (ModulatedConv2d, EqualConv2d)):
+            module.weight.copy_(torch.randn(module.weight.shape, generator=generator))
+
+
 class Generator(nn.Module):
     """StyleGAN2 synthesis network.
 
@@ -262,12 +286,7 @@ class Generator(nn.Module):
         linear weights N(0, 1/lr_mul), conv weights and input N(0, 1),
         modulation bias 1, other biases and noise weights 0, noise buffers
         N(0, 1))."""
-        for module in self.modules():
-            if isinstance(module, EqualLinear):
-                w = torch.randn(module.weight.shape, generator=generator) / module.lr_mul
-                module.weight.copy_(w)
-            elif isinstance(module, ModulatedConv2d):
-                module.weight.copy_(torch.randn(module.weight.shape, generator=generator))
+        init_layer_weights(self, generator)
         self.input.input.copy_(torch.randn(self.input.input.shape, generator=generator))
         for i in range(self.noises.num):
             buf = getattr(self.noises, f"noise_{i}")
@@ -295,12 +314,22 @@ class Generator(nn.Module):
         randomize_noise: bool = True,
         return_intermediate_activations: bool = False,
         generator: Optional[torch.Generator] = None,
+        input_is_latent: bool = False,
+        noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        return_latents: bool = False,
     ):
-        """styles: list of one or two (B, style_dim) z. Returns (image (B, H,
-        W, 3), {0..num_layers: (B, H, W, C)} activations or None). `generator` is the torch.Generator for the
-        random draws: the mixing index when two styles come without
-        `inject_index`, and the noise when `randomize_noise`."""
-        styles = [self.get_latent(s) for s in styles]
+        """styles: list of one or two (B, style_dim) z, or with
+        `input_is_latent` mapped w: (B, style_dim) each, or one (B, n_latent,
+        style_dim) per-layer latent. `noise`: per layer, a (B or 1, H, W, 1)
+        tensor to use or None to draw; without it, every layer draws when
+        `randomize_noise` and uses its stored buffer otherwise. `generator`
+        is the torch.Generator for the random draws (the mixing index when
+        two styles come without `inject_index`, and the noise), on the
+        latent's device. Returns (image (B, H, W, 3), the (B, n_latent,
+        style_dim) latent with `return_latents`, else the {0..num_layers: (B,
+        H, W, C)} activations or None)."""
+        if not input_is_latent:
+            styles = [self.get_latent(s) for s in styles]
         if truncation < 1:
             if truncation_latent is None:
                 raise ValueError("truncation < 1 needs a truncation_latent")
@@ -308,20 +337,26 @@ class Generator(nn.Module):
 
         n_latent = self.n_latent
         if len(styles) < 2:
-            latent = styles[0][:, None, :].expand(-1, n_latent, -1)
+            latent = styles[0]
+            if latent.ndim == 2:
+                latent = latent[:, None, :].expand(-1, n_latent, -1)
         else:
             if inject_index is None:
-                inject_index = int(torch.randint(1, n_latent, (1,), generator=generator))
+                inject_index = int(torch.randint(1, n_latent, (1,), generator=generator,
+                                                 device=styles[0].device))
             pos = torch.arange(n_latent, device=styles[0].device)[None, :, None]
             latent = torch.where(pos < inject_index, styles[0][:, None, :], styles[1][:, None, :])
 
         batch = latent.shape[0]
         device = latent.device
-        if randomize_noise:
-            noise = [torch.randn((batch,) + tuple(buf.shape[1:]), generator=generator).to(device)
-                     for buf in self.noises.nhwc()]
-        else:
-            noise = self.noises.nhwc()
+        buffers = self.noises.nhwc()
+        if noise is None:
+            noise = [None] * len(buffers) if randomize_noise else buffers
+        noise = [
+            torch.randn((batch,) + tuple(buf.shape[1:]), generator=generator, device=device)
+            if n is None else n
+            for n, buf in zip(noise, buffers)
+        ]
 
         acts: Optional[Dict[int, torch.Tensor]] = (
             {} if return_intermediate_activations else None
@@ -348,4 +383,129 @@ class Generator(nn.Module):
             skip = to_rgb(out, latent[:, i + 2], skip)
             i += 2
 
+        if return_latents:
+            return skip, latent
         return skip, acts
+
+
+# ---------------------------------------------------------------------------
+# discriminator
+
+
+class EqualConv2d(nn.Module):
+    """Conv without bias, with runtime equalized-lr scaling, on NHWC tensors;
+    weight in the reference layout (out, in, kh, kw). (Every discriminator
+    conv puts its bias in the activation after it, or has none.)"""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channel, in_channel, kernel_size, kernel_size))
+        self.scale = 1.0 / math.sqrt(in_channel * kernel_size**2)
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.conv2d(_nchw(x), (self.weight * self.scale).to(x.dtype),
+                       stride=self.stride, padding=self.padding)
+        return _nhwc(out)
+
+
+class Blur(nn.Module):
+    """FIR blur before a stride-2 conv (no parameters)."""
+
+    def __init__(self, kernel: Sequence[int], pad: Tuple[int, int]):
+        super().__init__()
+        self.register_buffer("kernel", make_kernel(list(kernel)), persistent=False)
+        self.pad = pad
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upfirdn2d(x, self.kernel, pad=self.pad)
+
+
+class ConvLayer(nn.Sequential):
+    """[blur,] EqualConv2d [, bias + LeakyReLU]: the reference Sequential,
+    so its keys are `<i>.weight` / `<i>.bias`."""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
+                 downsample: bool = False, blur_kernel: Sequence[int] = (1, 3, 3, 1),
+                 activate: bool = True):
+        layers: List[nn.Module] = []
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(blur_kernel, ((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_channel, out_channel, kernel_size, stride=stride,
+                                  padding=padding))
+        if activate:
+            layers.append(FusedLeakyReLU(out_channel))
+        super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    """Residual downsampling block with the 1/sqrt(2) merge."""
+
+    def __init__(self, in_channel: int, out_channel: int,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1)):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True,
+                               blur_kernel=blur_kernel)
+        self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True, activate=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        return (out + self.skip(x)) / math.sqrt(2)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1) -> torch.Tensor:
+    """Append the minibatch-stddev channel to an NHWC tensor: per group of
+    `group_size` samples, the biased standard deviation over the group,
+    averaged over H, W and the channels of each feature, in float32."""
+    b, h, w, c = x.shape
+    group = min(b, group_size)
+    y = x.reshape(group, -1, h, w, num_features, c // num_features).float()
+    std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
+    mean_std = std.mean(dim=(1, 2, 4)).repeat(group, 1)  # (B, num_features)
+    stat = mean_std[:, None, None, :].expand(b, h, w, num_features).to(x.dtype)
+    return torch.cat([x, stat], dim=-1)
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator on NHWC images, logits (B, 1).
+
+    Parameters are left uninitialized: call `init_weights(generator)` or
+    load a state dict."""
+
+    def __init__(self, size: int, channel_multiplier: int = 2,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1), input_channels: int = 3):
+        super().__init__()
+        channels = generator_channels(channel_multiplier)
+        convs: List[nn.Module] = [ConvLayer(input_channels, channels[size], 1)]
+        in_channel = channels[size]
+        for i in range(int(math.log2(size)), 2, -1):
+            out_channel = channels[2 ** (i - 1)]
+            convs.append(ResBlock(in_channel, out_channel, blur_kernel))
+            in_channel = out_channel
+        self.convs = nn.Sequential(*convs)
+        self.final_conv = ConvLayer(in_channel + 1, channels[4], 3)
+        self.final_linear = nn.Sequential(
+            EqualLinear(channels[4] * 4 * 4, channels[4], activation=True),
+            EqualLinear(channels[4], 1),
+        )
+
+    def init_weights(self, generator: torch.Generator) -> "Discriminator":
+        """Random init drawn from `generator` (the JAX package's
+        initializers: weights N(0, 1), biases 0)."""
+        init_layer_weights(self, generator)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.convs(x)
+        out = minibatch_stddev(out, group_size=4, num_features=1)
+        out = self.final_conv(out)
+        # the reference flattens NCHW: its final_linear.0 columns are (c, y, x)
+        out = out.permute(0, 3, 1, 2).reshape(out.shape[0], -1)
+        return self.final_linear(out)

@@ -1,16 +1,23 @@
-"""Upsample StyledConv tail in one pass: the kernel wrapper and its plain
-version.
+"""Upsample StyledConv tail in one pass: the kernel wrapper, its plain
+version and the autograd Function around both.
 
   out[b,y,x,c] = act(blur4(x)[b,y,x,c] * demod[b,c] + noise[b,y,x] + bias[c]) * act_scale
 
 Counterpart of synthesis_in_style_tpu/ops/pallas/fused_blur.py
-(`blur_demod_noise_bias_act`, forward). The CUDA kernel is
-`csrc/fused_blur.cu`. Unlike the TPU kernel, the input is the LOGICAL
-(B, 2h+1, 2h+1, C) transposed-conv output: the blur's (1, 1) zero padding is
-virtual inside the kernel, so no width-padded producer is needed.
+(`blur_demod_noise_bias_act`: the forward kernel and its AD rule
+`_jvp_rule`). The CUDA kernel is `csrc/fused_blur.cu`. Unlike the TPU
+kernel, the input is the LOGICAL (B, 2h+1, 2h+1, C) transposed-conv output:
+the blur's (1, 1) zero padding is virtual inside the kernel, so no
+width-padded producer is needed.
 
 `taps` are the per-axis separable taps including the upsample gain: for the
 StyleGAN2 (1, 3, 3, 1) blur after an up-2 conv they are [1, 3, 3, 1] / 8 * 2.
+
+`blur_demod_noise_bias_act` is `FusedBlurTailFunction` on every device: the
+forward runs the kernel on a CUDA tensor and the plain version on a CPU
+tensor; the backward is written in differentiable PyTorch ops (as the JAX
+rule is written in XLA), so second-order gradients (path length) go
+through it. Its activation step reuses the bias-act backward kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ from typing import Sequence
 import torch
 
 from synthesis_in_style_tpu_torch.ops.cuda import build
-from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import DTYPE_CODES
+from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import DTYPE_CODES, compute_dtype
+from synthesis_in_style_tpu_torch.ops.fused_act import FusedLeakyReLUBackwardFunction
 from synthesis_in_style_tpu_torch.ops.upfirdn2d import upfirdn2d
 
 DEFAULT_TAPS = (0.25, 0.75, 0.75, 0.25)
@@ -43,6 +51,11 @@ def _check_shapes(x, demod, noise, bias):
         raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
 
 
+def _blur_kernel(taps: Sequence[float], device, dtype=torch.float32) -> torch.Tensor:
+    k1 = torch.as_tensor(taps, dtype=dtype, device=device)
+    return k1[:, None] * k1[None, :]
+
+
 def blur_demod_noise_bias_act_plain(
     x: torch.Tensor,
     demod: torch.Tensor,
@@ -55,10 +68,9 @@ def blur_demod_noise_bias_act_plain(
     """upfirdn2d blur (pad (1, 1)) + the epilogue, in float32, rounded once to
     x's dtype. noise is (B or 1, 2h, 2h)."""
     _check_shapes(x, demod, noise, bias)
-    k1 = torch.as_tensor(taps, dtype=torch.float32, device=x.device)
-    k2d = k1[:, None] * k1[None, :]
-    pre = upfirdn2d(x.float(), k2d, pad=(1, 1))
-    pre = pre * demod.float()[:, None, None, :] + noise.float()[..., None] + bias.float()
+    acc = compute_dtype(x.dtype)
+    pre = upfirdn2d(x.to(acc), _blur_kernel(taps, x.device, acc), pad=(1, 1))
+    pre = pre * demod.to(acc)[:, None, None, :] + noise.to(acc)[..., None] + bias.to(acc)
     return (torch.where(pre >= 0, pre, pre * slope) * act_scale).to(x.dtype)
 
 
@@ -115,6 +127,55 @@ def blur_demod_noise_bias_act_cuda(
 blur_demod_noise_bias_act_cuda.launches = 0
 
 
+class FusedBlurTailFunction(torch.autograd.Function):
+    """(x, demod, noise, bias) -> the tail above. The backward, with
+    pre = blur(x) * demod + noise + bias and dpre = act'(pre) * g (from y):
+
+      dbias  = sum over (b, y, x) of dpre      dnoise = sum over c of dpre
+      ddemod = sum over (y, x) of dpre * blur(x)
+      dx     = blur^T(dpre * demod)  (upfirdn2d with the flipped taps, pad 2)
+
+    dnoise is summed over the batch too for a shared (1, H, W) plane."""
+
+    @staticmethod
+    def forward(ctx, x, demod, noise, bias, taps, slope, act_scale):
+        if x.is_cuda:
+            y = blur_demod_noise_bias_act_cuda(
+                x.contiguous(), demod, noise, bias, taps, slope, act_scale
+            )
+        elif x.device.type == "cpu":
+            y = blur_demod_noise_bias_act_plain(x, demod, noise, bias, taps, slope, act_scale)
+        else:
+            raise ValueError(f"blur_demod_noise_bias_act: no implementation for device {x.device}")
+        ctx.save_for_backward(x, demod, noise, bias, y)
+        ctx.taps, ctx.slope, ctx.act_scale = tuple(taps), slope, act_scale
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, demod, noise, bias, y = ctx.saved_tensors
+        need_x, need_demod, need_noise, need_bias = ctx.needs_input_grad[:4]
+        dpre, dbias = FusedLeakyReLUBackwardFunction.apply(
+            g, y, bias.dtype if need_bias else None, ctx.slope, ctx.act_scale
+        )
+        acc = compute_dtype(x.dtype)
+        dpre = dpre.to(acc)
+        k2d = _blur_kernel(ctx.taps, x.device, acc)
+        dx = ddemod = dnoise = None
+        if need_x:
+            dx = upfirdn2d(dpre * demod.to(acc)[:, None, None, :], torch.flip(k2d, (0, 1)),
+                           pad=(2, 2)).to(x.dtype)
+        if need_demod:
+            blur_x = upfirdn2d(x.to(acc), k2d, pad=(1, 1))
+            ddemod = (dpre * blur_x).sum(dim=(1, 2)).to(demod.dtype)
+        if need_noise:
+            dnoise = dpre.sum(dim=-1)
+            if noise.shape[0] == 1:
+                dnoise = dnoise.sum(dim=0, keepdim=True)
+            dnoise = dnoise.to(noise.dtype)
+        return dx, ddemod, dnoise, dbias, None, None, None
+
+
 def blur_demod_noise_bias_act(
     x: torch.Tensor,
     demod: torch.Tensor,
@@ -124,14 +185,6 @@ def blur_demod_noise_bias_act(
     slope: float = 0.2,
     act_scale: float = math.sqrt(2.0),
 ) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors; any other
-    device raises."""
-    if x.is_cuda:
-        return blur_demod_noise_bias_act_cuda(
-            x.contiguous(), demod, noise, bias, taps, slope, act_scale
-        )
-    if x.device.type == "cpu":
-        return blur_demod_noise_bias_act_plain(
-            x, demod, noise, bias, taps, slope, act_scale
-        )
-    raise ValueError(f"blur_demod_noise_bias_act: no implementation for device {x.device}")
+    """`FusedBlurTailFunction`: kernel for CUDA tensors, plain version for
+    CPU tensors, any other device raises; differentiable to any order."""
+    return FusedBlurTailFunction.apply(x, demod, noise, bias, tuple(taps), slope, act_scale)

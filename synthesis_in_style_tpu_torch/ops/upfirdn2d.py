@@ -4,6 +4,13 @@ Counterpart of synthesis_in_style_tpu/ops/upfirdn2d.py, where it is one XLA
 convolution and no Pallas kernel. Here: zero-insertion upsample (each sample
 followed by up-1 zeros), pad or crop, a depthwise convolution with the flipped
 FIR kernel, strided downsample.
+
+The op is linear in x, and its adjoint is upfirdn2d again (flipped kernel,
+up and down swapped, the pads below), so it is an autograd Function whose
+backward calls it: every order of derivative is a forward depthwise
+convolution. PyTorch's own double backward of a grouped convolution loops
+over the groups (one convolution per channel), which made R1 through the
+discriminator's blurs take seconds per step on an H100.
 """
 
 from __future__ import annotations
@@ -33,6 +40,34 @@ def _normalize_pad(pad: Pad) -> Tuple[int, int, int, int]:
     return tuple(pad)  # type: ignore[return-value]
 
 
+def _pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)  # type: ignore[return-value]
+
+
+class UpFirDn2dFunction(torch.autograd.Function):
+    """upfirdn2d with its adjoint as backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, up, down, pad):
+        out = _upfirdn2d(x, kernel, up, down, pad)
+        ctx.save_for_backward(kernel)
+        ctx.up, ctx.down, ctx.pad = up, down, pad
+        ctx.in_hw, ctx.out_hw = tuple(x.shape[1:3]), tuple(out.shape[1:3])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (kernel,) = ctx.saved_tensors
+        (up_y, up_x), (down_y, down_x) = ctx.up, ctx.down
+        pad_x0, _, pad_y0, _ = ctx.pad
+        (h, w), (out_h, out_w) = ctx.in_hw, ctx.out_hw
+        kh, kw = kernel.shape
+        g_pad = (kw - pad_x0 - 1, w * up_x - out_w * down_x + pad_x0 - up_x + 1,
+                 kh - pad_y0 - 1, h * up_y - out_h * down_y + pad_y0 - up_y + 1)
+        gx = UpFirDn2dFunction.apply(g, torch.flip(kernel, (0, 1)), ctx.down, ctx.up, g_pad)
+        return gx, None, None, None, None
+
+
 def upfirdn2d(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -43,10 +78,15 @@ def upfirdn2d(
     """(N, H, W, C) -> (N, (H*up_y + pad_y0 + pad_y1 - kh) // down_y + 1, ..., C).
 
     `pad` is (pad0, pad1) for both axes or (x0, x1, y0, y1); negative crops.
+    `kernel` is a constant (no gradient).
     """
-    up_y, up_x = (up, up) if isinstance(up, int) else up
-    down_y, down_x = (down, down) if isinstance(down, int) else down
-    pad_x0, pad_x1, pad_y0, pad_y1 = _normalize_pad(pad)
+    return UpFirDn2dFunction.apply(x, kernel.detach(), _pair(up), _pair(down),
+                                   _normalize_pad(pad))
+
+
+def _upfirdn2d(x, kernel, up, down, pad):
+    (up_y, up_x), (down_y, down_x) = up, down
+    pad_x0, pad_x1, pad_y0, pad_y1 = pad
     n, h, w, c = x.shape
     kh, kw = kernel.shape
 

@@ -1,4 +1,5 @@
-"""Generator weights in and out of the port.
+"""Generator, discriminator and GAN training snapshots in and out of the
+port.
 
 The port's generator uses the reference StyleGAN2 state-dict layout, so
 three sources load into it:
@@ -11,13 +12,22 @@ three sources load into it:
   keys), either of such variables or of a GAN snapshot tree with `g_ema`
   (bare params) and `g_noises`;
 * a reference-layout torch `.pt`: a state dict, or a dict of them keyed by
-  network name (`g_ema`, `generator`).
+  network name (`g_ema`, `generator`), such as a GAN snapshot of the port.
+
+The discriminator's state dict follows the reference layout as well
+(`discriminator_params_from_jax` carries the JAX discriminator across, the
+inverse of `torch_discriminator_to_flax` in the JAX package). A GAN training
+snapshot (`save_gan_snapshot` / `load_gan_snapshot`) is a `.pt` in the
+reference layout: `generator`, `discriminator` and `g_ema` state dicts,
+`generator_optimizer` and `discriminator_optimizer` torch optimizer states,
+and `training_state` with `mean_path_length`.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -60,6 +70,39 @@ def generator_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tens
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+def _conv_layer(prefix: str, p: Dict[str, Any], conv_idx: int,
+                out: Dict[str, np.ndarray]) -> None:
+    """A JAX ConvLayer -> the reference Sequential [Blur,] conv [, act]: the
+    conv at index `conv_idx`, its activation's bias at the next index."""
+    w = np.asarray(p["conv"]["weight"])  # (kh, kw, in, out); the conv has no bias
+    out[f"{prefix}.{conv_idx}.weight"] = w.transpose(3, 2, 0, 1)
+    if "bias" in p:
+        out[f"{prefix}.{conv_idx + 1}.bias"] = np.asarray(p["bias"])
+
+
+def discriminator_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax discriminator params (numpy leaves; the bare tree or
+    {"params": tree}) -> port discriminator state dict."""
+    params = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+    _conv_layer("convs.0", params["conv_in"], 0, sd)
+    n_blocks = sum(1 for name in params if name.startswith("blocks_"))
+    for i in range(n_blocks):
+        block, t = params[f"blocks_{i}"], f"convs.{i + 1}"
+        _conv_layer(f"{t}.conv1", block["conv1"], 0, sd)
+        _conv_layer(f"{t}.conv2", block["conv2"], 1, sd)  # index 0 is the blur
+        _conv_layer(f"{t}.skip", block["skip"], 1, sd)
+    _conv_layer("final_conv", params["final_conv"], 0, sd)
+    # JAX flattens the (4, 4, C) map NHWC; the reference (and the port) NCHW
+    w0 = np.asarray(params["final_linear_0"]["weight"]).T  # (out, 16 C), (y, x, c) columns
+    out_dim, in_dim = w0.shape
+    w0 = w0.reshape(out_dim, 4, 4, in_dim // 16).transpose(0, 3, 1, 2).reshape(out_dim, in_dim)
+    sd["final_linear.0.weight"] = w0
+    sd["final_linear.0.bias"] = np.asarray(params["final_linear_0"]["bias"])
+    _lin("final_linear.1", params["final_linear_1"], sd)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
 def unflatten_npz(data) -> Dict[str, Any]:
     """An npz (or dict) with '/'-joined keys -> nested dict."""
     tree: Dict[str, Any] = {}
@@ -89,6 +132,12 @@ def load_jax_npz(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
     return generator_params_from_jax(variables)
 
 
+def strip_blur_kernels(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Drop the reference's fixed FIR buffers (`*.kernel` of its Blur and
+    Upsample modules): the port rebuilds them and does not store them."""
+    return {k: torch.as_tensor(v) for k, v in state.items() if not k.endswith(".kernel")}
+
+
 def load_reference_pt(path: Union[str, Path], key: str = "g_ema") -> Dict[str, torch.Tensor]:
     """Port state dict from a reference-layout torch checkpoint."""
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
@@ -96,7 +145,7 @@ def load_reference_pt(path: Union[str, Path], key: str = "g_ema") -> Dict[str, t
         ckpt = ckpt[key]
     if "input.input" not in ckpt:
         raise KeyError(f"{path}: no generator state dict (no {key!r}, no 'input.input')")
-    return {k: torch.as_tensor(v) for k, v in ckpt.items()}
+    return strip_blur_kernels(ckpt)
 
 
 def load_generator_state(path: Union[str, Path], key: str = "g_ema") -> Dict[str, torch.Tensor]:
@@ -110,3 +159,52 @@ def load_generator_state(path: Union[str, Path], key: str = "g_ema") -> Dict[str
     if path.suffix == ".npz":
         return load_jax_npz(path)
     return load_reference_pt(path, key)
+
+
+def save_gan_snapshot(
+    path: Union[str, Path],
+    generator: torch.nn.Module,
+    discriminator: torch.nn.Module,
+    g_ema: torch.nn.Module,
+    generator_optimizer: torch.optim.Optimizer,
+    discriminator_optimizer: torch.optim.Optimizer,
+    mean_path_length: float,
+) -> None:
+    """Write a GAN training snapshot (reference `.pt` layout, module
+    docstring) to `path`, through a temporary file so a crash mid-write
+    leaves no half snapshot under the final name."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save({
+        "generator": generator.state_dict(),
+        "discriminator": discriminator.state_dict(),
+        "g_ema": g_ema.state_dict(),
+        "generator_optimizer": generator_optimizer.state_dict(),
+        "discriminator_optimizer": discriminator_optimizer.state_dict(),
+        "training_state": {"mean_path_length": float(mean_path_length)},
+    }, tmp)
+    os.replace(tmp, path)
+
+
+def load_gan_snapshot(path: Union[str, Path]) -> Dict[str, Any]:
+    """A GAN snapshot of the port or a reference `.pt` -> {key: value} for
+    the keys it has of `generator`, `discriminator`, `g_ema` (state dicts,
+    without the reference's blur buffers), the two optimizer states and
+    `mean_path_length` (None when absent). Raises when it has none of the
+    three networks."""
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    out: Dict[str, Any] = {}
+    for key in ("generator", "discriminator", "g_ema"):
+        if isinstance(ckpt.get(key), dict):
+            out[key] = strip_blur_kernels(ckpt[key])
+    if not out:
+        raise KeyError(
+            f"{path}: none of generator/discriminator/g_ema; found {sorted(ckpt)}"
+        )
+    for key in ("generator_optimizer", "discriminator_optimizer"):
+        if key in ckpt:
+            out[key] = ckpt[key]
+    mpl: Optional[float] = (ckpt.get("training_state") or {}).get("mean_path_length")
+    out["mean_path_length"] = None if mpl is None else float(mpl)
+    return out
