@@ -9,10 +9,15 @@
    shapes the two paths give it, with TF32 off for both: fused bias-act
    forward and backward at (16, 512) and (16, 256, 256, 128) in float32 and
    bfloat16; the fused blur tail at the six upsample shapes of the 256px
-   generator; connected components on random masks, on a 1-px snake and on
-   masks of the real path at (32, 256, 256), 4- and 8-connected,
-   bit-identical. Each kernel is timed beside its plain version, its bound
-   and (backward) the nearest PyTorch calls.
+   generator in float32 and bfloat16; union-find connected components,
+   4- and 8-connected and bit-identical, on random masks, a 1-px snake, an
+   all-foreground batch, a checkerboard, isolated pixels, a ragged
+   (3, 37, 53), the real path's masks at (32, 256, 256) and their union at
+   (16, 256, 256), and a page-sized (2, 1024, 768), every CC call under
+   torch.cuda.set_sync_debug_mode("error") (no host sync inside). Each
+   kernel is timed (wall per call, and device time from torch.profiler)
+   beside its plain version, its bound and (backward) the nearest PyTorch
+   calls.
 3. Holds both autograd Functions (fused bias-act, fused blur tail) on the
    card against the same Functions on the CPU, first and second order.
 4. Runs every step of one training iteration (D, R1, G, path length, EMA)
@@ -87,6 +92,8 @@ CREATION_CONFIG = {  # configs/dataset_creation/stylegan2_cluster_based_bw_hwp_w
     "seed": 1,
 }
 NUM_CLUSTERS = 8
+SMALL_NUMEL = 1 << 22  # below this many elements a call is timed SMALL_ITERS times
+SMALL_ITERS = 200
 
 
 def log(msg: str) -> None:
@@ -94,7 +101,10 @@ def log(msg: str) -> None:
 
 
 def bench_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over `iters` calls, by CUDA events."""
+    """Mean time per fn() call over `iters` back-to-back calls, by CUDA
+    events: the device's time, or the host's dispatch where that sets the
+    pace (calls of a few microseconds of device work, timed over many
+    iterations so that the mean settles)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -105,6 +115,24 @@ def bench_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean device time per fn() call: the card's kernel time from
+    torch.profiler over `iters` calls, without the host's dispatch between
+    them (which bench_ms includes wherever it sets the pace). None if the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / iters if busy_us > 0 else None
 
 
 def bound(nbytes: float, nops: float) -> dict:
@@ -143,10 +171,12 @@ def check_fused_bias_act(detail):
             limit = tol * max(1.0, ref.abs().max().item())
             if not err <= limit:
                 raise AssertionError(f"fused_bias_act {shape} {dtype}: err {err} > {limit}")
+            iters = SMALL_ITERS if x.numel() < SMALL_NUMEL else 10
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   "max_abs_err": err, "tolerance": limit,
-                   "ms": bench_ms(lambda: fused_leaky_relu_cuda(x, b)),
-                   "plain_ms": bench_ms(lambda: fused_leaky_relu_plain(x, b)),
+                   "max_abs_err": err, "tolerance": limit, "iters": iters,
+                   "ms": bench_ms(lambda: fused_leaky_relu_cuda(x, b), iters),
+                   "device_ms": device_ms(lambda: fused_leaky_relu_cuda(x, b)),
+                   "plain_ms": bench_ms(lambda: fused_leaky_relu_plain(x, b), iters),
                    # add, compare, two multiplies per element
                    **bound(2 * x.numel() * x.element_size() + b.numel() * b.element_size(),
                            4 * x.numel())}
@@ -154,7 +184,7 @@ def check_fused_bias_act(detail):
             worst = max(worst, err)
             log(f"fused_bias_act {row}")
     main = next(r for r in detail if r["shape"] == [16, 256, 256, 128] and r["dtype"] == "float32")
-    return {**{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+    return {**{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             "max_abs_err": worst}
 
 
@@ -185,18 +215,22 @@ def check_fused_bias_act_bwd(detail):
             def library():  # the nearest PyTorch calls: two of them
                 return torch.ops.aten.leaky_relu_backward(grad, y, 0.2, True) * SQRT2
 
+            iters = SMALL_ITERS if y.numel() < SMALL_NUMEL else 10
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   "max_abs_err": err, "tolerance": limit,
-                   "ms": bench_ms(lambda: fused_leaky_relu_bwd_cuda(y, grad)),
-                   "plain_ms": bench_ms(lambda: fused_leaky_relu_bwd_plain(y, grad)),
-                   "library_ms": bench_ms(library),
+                   "max_abs_err": err, "tolerance": limit, "iters": iters,
+                   "ms": bench_ms(lambda: fused_leaky_relu_bwd_cuda(y, grad), iters),
+                   "device_ms": device_ms(lambda: fused_leaky_relu_bwd_cuda(y, grad)),
+                   "plain_ms": bench_ms(lambda: fused_leaky_relu_bwd_plain(y, grad), iters),
+                   "library_ms": bench_ms(library, iters),
+                   "library_device_ms": device_ms(library),
                    # read y and g, write dx; a compare and a multiply per element
                    **bound(3 * y.numel() * y.element_size(), 2 * y.numel())}
             detail.append(row)
             worst = max(worst, err)
             log(f"fused_bias_act_bwd {row}")
     main = next(r for r in detail if r["shape"] == [16, 256, 256, 128] and r["dtype"] == "float32")
-    return {**{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    return {**{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
             "max_abs_err": worst}
 
 
@@ -204,6 +238,11 @@ BLUR_SHAPES = ((8, 512), (16, 512), (32, 512), (64, 512), (128, 256), (256, 128)
 
 
 def check_fused_blur(detail):
+    """The blur tail at the six upsample shapes, float32 (the dataset path)
+    and bfloat16 (training). float32: max abs error <= 1e-4 (the 16
+    taps are summed in another order); bfloat16: <= 2^-7 x max|ref|, both
+    against the plain version in the working type. The kernels line reports
+    the 256^2 x 128 float32 shape and the worst float32 error."""
     from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import (
         blur_demod_noise_bias_act_cuda,
         blur_demod_noise_bias_act_plain,
@@ -211,29 +250,37 @@ def check_fused_blur(detail):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = 0.0
-    for res, c in BLUR_SHAPES:
-        x = torch.randn((BATCH, res + 1, res + 1, c), generator=g, device="cuda")
-        demod = torch.rand((BATCH, c), generator=g, device="cuda") + 0.5
-        noise = torch.randn((1, res, res), generator=g, device="cuda")
-        bias = torch.randn((c,), generator=g, device="cuda")
-        args = (x, demod, noise, bias)
-        got = blur_demod_noise_bias_act_cuda(*args)
-        ref = blur_demod_noise_bias_act_plain(*args)
-        err = (got - ref).abs().max().item()
-        if not err <= 1e-4:  # float32; the 16 taps are summed in another order
-            raise AssertionError(f"fused_blur {res}x{res}x{c}: err {err} > 1e-4")
-        out_bytes = got.numel() * 4
-        in_bytes = (x.numel() + demod.numel() + noise.numel() + bias.numel()) * 4
-        row = {"out": [BATCH, res, res, c], "max_abs_err": err, "tolerance": 1e-4,
-               "ms": bench_ms(lambda: blur_demod_noise_bias_act_cuda(*args)),
-               "plain_ms": bench_ms(lambda: blur_demod_noise_bias_act_plain(*args)),
-               # 16 multiply-adds, then demod, noise, bias, compare, two multiplies
-               **bound(in_bytes + out_bytes, 38 * got.numel())}
-        detail.append(row)
-        worst = max(worst, err)
-        log(f"fused_blur {row}")
-    main = detail[-1]  # the 256x256x128 layer, the largest
-    return {**{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+    for dtype in (torch.float32, torch.bfloat16):
+        for res, c in BLUR_SHAPES:
+            x = torch.randn((BATCH, res + 1, res + 1, c), generator=g, device="cuda").to(dtype)
+            demod = torch.rand((BATCH, c), generator=g, device="cuda") + 0.5
+            noise = torch.randn((1, res, res), generator=g, device="cuda")
+            bias = torch.randn((c,), generator=g, device="cuda")
+            args = (x, demod, noise, bias)
+            got = blur_demod_noise_bias_act_cuda(*args).float()
+            ref = blur_demod_noise_bias_act_plain(*args).float()
+            err = (got - ref).abs().max().item()
+            limit = 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.abs().max().item()
+            name = str(dtype).split(".")[-1]
+            if not err <= limit:
+                raise AssertionError(f"fused_blur {res}x{res}x{c} {name}: err {err} > {limit}")
+            out_bytes = got.numel() * x.element_size()
+            in_bytes = x.numel() * x.element_size() + \
+                (demod.numel() + noise.numel() + bias.numel()) * 4
+            iters = SMALL_ITERS if got.numel() < SMALL_NUMEL else 10
+            row = {"out": [BATCH, res, res, c], "dtype": name, "max_abs_err": err,
+                   "tolerance": limit, "iters": iters,
+                   "ms": bench_ms(lambda: blur_demod_noise_bias_act_cuda(*args), iters),
+                   "device_ms": device_ms(lambda: blur_demod_noise_bias_act_cuda(*args)),
+                   "plain_ms": bench_ms(lambda: blur_demod_noise_bias_act_plain(*args), iters),
+                   # 16 multiply-adds, then demod, noise, bias, compare, two multiplies
+                   **bound(in_bytes + out_bytes, 38 * got.numel())}
+            detail.append(row)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            log(f"fused_blur {row}")
+    main = next(r for r in detail if r["out"] == [BATCH, 256, 256, 128] and r["dtype"] == "float32")
+    return {**{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             "max_abs_err": worst}
 
 
@@ -318,28 +365,64 @@ def _snake(h: int, w: int) -> torch.Tensor:
     return mask
 
 
-def check_segmented_cc(detail, path_masks: torch.Tensor):
-    """path_masks: (32, 256, 256) bool, the first CC input of the real back
-    half (dilated, hole-filled fine-layer masks)."""
-    from synthesis_in_style_tpu_torch.segmentation.device_cc import connected_components
+def _no_sync(fn):
+    """fn() with every implicit device-to-host sync turned into an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _cc_cases(path_masks: torch.Tensor):
+    from synthesis_in_style_tpu_torch.segmentation.device_cc import fill_holes
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    ys = torch.arange(256, device="cuda")[:, None]
+    xs = torch.arange(256, device="cuda")[None, :]
     cases = [(f"random{d}", torch.rand((32, 256, 256), generator=g, device="cuda") < d)
              for d in (0.2, 0.45, 0.6)]
-    cases.append(("snake", _snake(256, 256).cuda()[None].expand(32, -1, -1).contiguous()))
-    cases.append(("path", path_masks))
-    for name, mask in cases:
+    cases += [
+        ("snake", _snake(256, 256).cuda()[None].expand(32, -1, -1).contiguous()),
+        ("all_foreground", torch.ones((32, 256, 256), dtype=torch.bool, device="cuda")),
+        # joined only diagonally: one component under 8, none joined under 4
+        ("checkerboard", ((ys + xs) % 2 == 0)[None].expand(32, -1, -1).contiguous()),
+        ("isolated_pixels", ((ys % 3 == 0) & (xs % 3 == 0))[None].expand(32, -1, -1)
+         .contiguous()),
+        ("ragged_3x37x53", torch.rand((3, 37, 53), generator=g, device="cuda") < 0.5),
+        ("path", path_masks),
+        # the shape of device_segmenter's union call: the filled union of two layers
+        ("path_union_16", fill_holes(path_masks[:16] | path_masks[16:])),
+        ("page_2x1024x768", torch.rand((2, 1024, 768), generator=g, device="cuda") < 0.5),
+    ]
+    return cases
+
+
+def check_segmented_cc(detail, path_masks: torch.Tensor):
+    """path_masks: (32, 256, 256) bool, the first CC input of the real back
+    half (dilated, hole-filled fine-layer masks). Every kernel call runs with
+    implicit syncs made errors; the timed one too (the synchronizes of the
+    timing itself lie outside)."""
+    from synthesis_in_style_tpu_torch.segmentation.device_cc import connected_components
+
+    for name, mask in _cc_cases(path_masks):
         for conn in (4, 8):
-            got = connected_components(mask, connectivity=conn, backend="kernel")
+            got = _no_sync(lambda: connected_components(mask, connectivity=conn,
+                                                        backend="kernel"))
             ref = connected_components(mask, connectivity=conn, backend="plain")
             if not torch.equal(got, ref):
                 raise AssertionError(f"segmented_cc {name} conn {conn}: labels differ")
-            log(f"segmented_cc {name} conn {conn}: bit-identical, "
-                f"{int((got >= 0).sum())} fg px, {len(torch.unique(got)) - 1} components")
+            if name == "all_foreground" and not bool((got == 0).all()):
+                raise AssertionError("segmented_cc all_foreground: labels are not all 0")
+            log(f"segmented_cc {name} {tuple(mask.shape)} conn {conn}: bit-identical, "
+                f"{int((got >= 0).sum())} fg px, {len(torch.unique(got[got >= 0]))} components")
     mask = path_masks
-    row = {"case": "path masks, connectivity 8", "shape": list(mask.shape), "max_abs_err": 0,
-           "ms": bench_ms(lambda: connected_components(mask, connectivity=8, backend="kernel"),
-                          iters=5, warmup=1),
+    row = {"case": "path masks, connectivity 8, one fixpoint per call",
+           "shape": list(mask.shape), "max_abs_err": 0, "sync_debug_mode": "error",
+           "ms": bench_ms(lambda: _no_sync(lambda: connected_components(
+               mask, connectivity=8, backend="kernel")), iters=50, warmup=2),
+           "device_ms": device_ms(lambda: connected_components(mask, connectivity=8,
+                                                               backend="kernel")),
            "plain_ms": bench_ms(lambda: connected_components(mask, connectivity=8,
                                                              backend="plain"),
                                 iters=2, warmup=1),
@@ -348,7 +431,8 @@ def check_segmented_cc(detail, path_masks: torch.Tensor):
            **bound(mask.numel() * 5, mask.numel() * 8)}
     detail.append(row)
     log(f"segmented_cc {row}")
-    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    return {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                "max_abs_err")}
 
 
 # ---------------------------------------------------------------------------
@@ -454,11 +538,13 @@ def counters():
         fused_leaky_relu_cuda,
     )
     from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act_cuda
-    from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import cc_sweeps_cuda
+    from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
 
+    # segmented_cc counts labellings (one fixpoint each), not kernel launches
     return {"fused_bias_act": fused_leaky_relu_cuda,
             "fused_bias_act_bwd": fused_leaky_relu_bwd_cuda,
-            "fused_blur": blur_demod_noise_bias_act_cuda, "segmented_cc": cc_sweeps_cuda}
+            "fused_blur": blur_demod_noise_bias_act_cuda,
+            "segmented_cc": connected_components_cuda}
 
 
 def reference_check(run: Path) -> torch.Tensor:
@@ -933,7 +1019,8 @@ def main() -> int:
                      "replaces": f"synthesis_in_style_tpu/{tpu}",
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
                      "max_abs_err": k["max_abs_err"],
-                     "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+                     "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
     if cli.detail is not None:
         cli.detail.parent.mkdir(parents=True, exist_ok=True)

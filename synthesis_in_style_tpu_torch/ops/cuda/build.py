@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -31,9 +31,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Loaded libraries, one per source. A shared library is loaded once per
-# process, so this cache is process-wide by nature.
+# Loaded libraries, one per source, and their resolved C entries. A shared
+# library is loaded once per process, so these caches are process-wide by
+# nature.
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -95,15 +97,20 @@ def build_all() -> Dict[str, Path]:
 
 def load(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry `symbol` of kernel library `name`, with its argument
-    types declared (every entry returns a cudaError_t as int)."""
+    types declared (every entry returns a cudaError_t as int). Resolved once
+    per process: later calls are one dictionary lookup, no lock."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is not None:
+        return fn
     with _LOCK:
         if name not in _LIBS:
             for lib_name, path in build_all().items():
                 if lib_name not in _LIBS:
                     _LIBS[lib_name] = ctypes.CDLL(str(path))
-    fn = getattr(_LIBS[name], symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+        fn = getattr(_LIBS[name], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
     return fn
 
 

@@ -21,6 +21,10 @@ from synthesis_in_style_tpu_torch.ops.cuda import build
 
 _SQRT2 = math.sqrt(2.0)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -63,13 +67,7 @@ def fused_leaky_relu_cuda(
             raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
         bias = bias.to(device=x.device, dtype=x.dtype).contiguous()
     y = torch.empty_like(x)
-    fn = build.load(
-        "fused_bias_act",
-        "sis_bias_act_fwd",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-         ctypes.c_void_p],
-    )
+    fn = build.load("fused_bias_act", "sis_bias_act_fwd", _FWD_ARGTYPES)
     err = fn(
         x.data_ptr(),
         bias.data_ptr() if bias is not None else None,
@@ -87,7 +85,6 @@ def fused_leaky_relu_cuda(
 
 
 fused_leaky_relu_cuda.launches = 0
-
 
 
 def fused_leaky_relu_bwd_plain(
@@ -123,12 +120,7 @@ def fused_leaky_relu_bwd_cuda(
     if not (y.is_contiguous() and g.is_contiguous()):
         raise ValueError("fused_leaky_relu_bwd_cuda: y and g must be contiguous")
     dx = torch.empty_like(g)
-    fn = build.load(
-        "fused_bias_act",
-        "sis_bias_act_bwd",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-    )
+    fn = build.load("fused_bias_act", "sis_bias_act_bwd", _BWD_ARGTYPES)
     err = fn(
         y.data_ptr(),
         g.data_ptr(),

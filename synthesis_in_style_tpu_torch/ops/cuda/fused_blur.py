@@ -23,8 +23,9 @@ through it. Its activation step reuses the bias-act backward kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -34,6 +35,18 @@ from synthesis_in_style_tpu_torch.ops.fused_act import FusedLeakyReLUBackwardFun
 from synthesis_in_style_tpu_torch.ops.upfirdn2d import upfirdn2d
 
 DEFAULT_TAPS = (0.25, 0.75, 0.75, 0.25)
+# launch geometry of csrc/fused_blur.cu: threads per block (one per output
+# column x 16-byte channel vector; the kernel's kMaxThreads), blocks aimed at
+# (one wave: two such blocks on each of the H100's 132 SMs), and the fewest
+# output rows a block walks
+THREADS_PER_BLOCK = 512
+TARGET_BLOCKS = 2 * 132
+MIN_ROWS = 4
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _check_shapes(x, demod, noise, bias):
@@ -49,6 +62,21 @@ def _check_shapes(x, demod, noise, bias):
         )
     if bias.shape != (c,):
         raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
+
+
+@functools.lru_cache(maxsize=64)  # a few shapes per model; saves host time per launch
+def blur_tile_geometry(batch: int, h_out: int, c: int, itemsize: int) -> Tuple[int, int, int]:
+    """(tile_x, vpp, rows) of the kernel's launch: a block of tile_x * vpp
+    threads owns tile_x output columns x vpp 16-byte channel vectors of one
+    image and walks `rows` output rows. Rows are cut so that the grid comes
+    nearest TARGET_BLOCKS blocks, never fewer than MIN_ROWS rows (each
+    strip re-reads 3 halo rows)."""
+    c_vecs = c * itemsize // 16
+    vpp = min(32, c_vecs)
+    tile_x = max(1, min(THREADS_PER_BLOCK // vpp, h_out))
+    base = batch * -(-h_out // tile_x) * -(-c_vecs // vpp)
+    strips = max(1, min((TARGET_BLOCKS + base // 2) // base, h_out // MIN_ROWS))
+    return tile_x, vpp, -(-h_out // strips)
 
 
 def _blur_kernel(taps: Sequence[float], device, dtype=torch.float32) -> torch.Tensor:
@@ -83,8 +111,10 @@ def blur_demod_noise_bias_act_cuda(
     slope: float = 0.2,
     act_scale: float = math.sqrt(2.0),
 ) -> torch.Tensor:
-    """Launch the kernel. x: contiguous (B, 2h+1, 2h+1, C) float32/bfloat16;
-    demod (B, C), noise (B or 1, 2h, 2h) and bias (C,) are read as float32."""
+    """Launch the kernel. x: contiguous (B, 2h+1, 2h+1, C) float32/bfloat16,
+    16-byte aligned, C a multiple of 4 (float32) or 8 (bfloat16), as every
+    StyleGAN2 width is; demod (B, C), noise (B or 1, 2h, 2h) and bias (C,)
+    are read as float32."""
     if not x.is_cuda:
         raise ValueError(f"blur_demod_noise_bias_act_cuda needs a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPE_CODES:
@@ -93,6 +123,11 @@ def blur_demod_noise_bias_act_cuda(
         raise ValueError("blur_demod_noise_bias_act_cuda: x must be contiguous NHWC")
     _check_shapes(x, demod, noise, bias)
     b, h_in, _, c = x.shape
+    if (c * x.element_size()) % 16 or x.data_ptr() % 16:
+        raise ValueError(
+            "blur_demod_noise_bias_act_cuda: the kernel moves 16-byte channel vectors: "
+            f"C = {c} must be a multiple of {16 // x.element_size()} and x 16-byte aligned"
+        )
     h_out = h_in - 1
     demod = demod.to(device=x.device, dtype=torch.float32).contiguous()
     noise = noise.to(device=x.device, dtype=torch.float32).contiguous()
@@ -104,19 +139,12 @@ def blur_demod_noise_bias_act_cuda(
     t = [float(v) for v in taps][::-1]
     if len(t) != 4:
         raise ValueError(f"the blur kernel takes 4 taps per axis, got {len(t)}")
-    fn = build.load(
-        "fused_blur",
-        "sis_blur_tail",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_void_p],
-    )
+    fn = build.load("fused_blur", "sis_blur_tail", _ARGTYPES)
     err = fn(
         x.data_ptr(), demod.data_ptr(), noise.data_ptr(), noise_batch_stride,
         bias.data_ptr(), out.data_ptr(), b, h_in, c, DTYPE_CODES[x.dtype],
         t[0], t[1], t[2], t[3], slope, act_scale,
+        *blur_tile_geometry(b, h_out, c, x.element_size()),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "sis_blur_tail")

@@ -1,14 +1,15 @@
-"""Connected-components labelling: the sweep-kernel wrapper, the host loop
-that drives it to its fixpoint, and the plain version.
+"""Connected-components labelling: the union-find kernel wrapper and the
+plain version.
 
 Counterpart of synthesis_in_style_tpu/ops/pallas/segmented_cc.py (`cc_sweeps`)
-and of the loop around it in segmentation/device_cc.py. The CUDA kernels are
-in `csrc/segmented_cc.cu`.
+and of the loop that drives it in segmentation/device_cc.py. The CUDA
+kernels are in `csrc/segmented_cc.cu`: a tile-local union-find in shared
+memory, a union across tile edges and a flatten, all on the current stream,
+with no host sync.
 
 The contract is the fixpoint: background -1, every component labelled with
 the smallest linear index (y * W + x) it contains. That labelling is unique,
-so the kernel route and the plain route agree bit for bit whatever their
-sweep schedules.
+so the kernel route and the plain route agree bit for bit.
 """
 
 from __future__ import annotations
@@ -20,9 +21,6 @@ import torch
 from synthesis_in_style_tpu_torch.ops.cuda import build
 
 INF = torch.iinfo(torch.int32).max
-# sweeps per kernel call between two reads of the changed flags (one
-# device-to-host sync each); even, as the 8-connectivity ping-pong needs
-SWEEPS_PER_CALL = 4
 
 
 def _seed_labels(mask: torch.Tensor) -> torch.Tensor:
@@ -63,67 +61,34 @@ def connected_components_plain(mask: torch.Tensor, connectivity: int = 4) -> tor
     return torch.where(mask, labels, torch.full_like(labels, -1))
 
 
-def cc_sweeps_cuda(
-    labels: torch.Tensor,
-    scratch: torch.Tensor,
-    mask: torch.Tensor,
-    changed: torch.Tensor,
-    connectivity: int,
-    sweeps: int,
-) -> None:
-    """Run `sweeps` label sweeps in place on `labels` ((B, H, W) int32, INF at
-    background), ORing a per-image flag into `changed` ((B,) int32) where a
-    label was lowered. `scratch` is a second (B, H, W) int32 buffer; `mask`
-    is (B, H, W) uint8."""
-    b, h, w = labels.shape
-    for t, dtype in ((labels, torch.int32), (scratch, torch.int32), (mask, torch.uint8)):
-        if not t.is_cuda or t.dtype != dtype or t.shape != (b, h, w) or not t.is_contiguous():
-            raise ValueError("cc_sweeps_cuda: bad labels/scratch/mask tensor")
-    if changed.shape != (b,) or changed.dtype != torch.int32 or not changed.is_cuda:
-        raise ValueError("cc_sweeps_cuda: changed must be a (B,) int32 CUDA tensor")
-    fn = build.load(
-        "segmented_cc",
-        "sis_cc_sweeps",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p],
-    )
-    err = fn(
-        labels.data_ptr(), scratch.data_ptr(), mask.data_ptr(), changed.data_ptr(),
-        b, h, w, connectivity, sweeps,
-        torch.cuda.current_stream(labels.device).cuda_stream,
-    )
-    build.check(err, "sis_cc_sweeps")
-    cc_sweeps_cuda.launches += 1
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
 
 
-cc_sweeps_cuda.launches = 0
-
-
-def connected_components_cuda(
-    mask: torch.Tensor, connectivity: int = 4, max_iters: int | None = None
-) -> torch.Tensor:
-    """Drive the sweep kernel to its fixpoint: after every SWEEPS_PER_CALL
-    sweeps read the changed flags, stop when none is set or at `max_iters`
-    sweeps (default H*W//2 + 2, a true bound: every sweep carries a
-    component's minimum across at least one more run)."""
+def connected_components_cuda(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
+    """Label a (B, H, W) CUDA mask in one call: three kernel launches on the
+    current stream, no device-to-host sync. Always reaches the fixpoint (no
+    iteration cap). Any H, W with H * W < 2^31."""
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    if not mask.is_cuda:
+        raise ValueError(f"connected_components_cuda needs a CUDA tensor, got {mask.device}")
+    if mask.ndim != 3:
+        raise ValueError(f"expected a (B, H, W) mask, got shape {tuple(mask.shape)}")
     b, h, w = mask.shape
-    if max_iters is None:
-        max_iters = h * w // 2 + 2
-    mask = mask.bool()
-    labels = _seed_labels(mask).contiguous()
-    if b == 0 or h * w == 0:
-        return torch.where(mask, labels, torch.full_like(labels, -1))
-    scratch = torch.empty_like(labels)
-    mask_u8 = mask.to(torch.uint8).contiguous()
-    changed = torch.zeros((b,), dtype=torch.int32, device=mask.device)
-    done = 0
-    while done < max_iters:
-        changed.zero_()
-        cc_sweeps_cuda(labels, scratch, mask_u8, changed, connectivity, SWEEPS_PER_CALL)
-        done += SWEEPS_PER_CALL
-        if not bool(changed.any()):
-            break
-    return torch.where(mask, labels, torch.full_like(labels, -1))
+    if h * w >= 2**31:
+        raise ValueError(f"connected_components_cuda: H * W = {h * w} does not fit int32 labels")
+    mask_u8 = mask.bool().contiguous().view(torch.uint8)
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=mask.device)
+    if labels.numel() == 0:
+        return labels
+    fn = build.load("segmented_cc", "sis_cc_union_find", _ARGTYPES)
+    err = fn(mask_u8.data_ptr(), labels.data_ptr(), b, h, w, connectivity,
+             torch.cuda.current_stream(mask.device).cuda_stream)
+    build.check(err, "sis_cc_union_find")
+    connected_components_cuda.launches += 1
+    return labels
+
+
+# one count per labelling (three kernels)
+connected_components_cuda.launches = 0

@@ -4,7 +4,7 @@ synthesis_in_style_tpu/segmentation/device_cc.py).
 Labels follow the JAX package's contract: background -1, each component
 labelled with the smallest linear index it contains. `connected_components`
 picks its route from the tensor's device, outside any compiled region: a
-CUDA tensor goes through the hand-written sweep kernel
+CUDA tensor goes through the hand-written union-find kernel
 (ops/cuda/segmented_cc.py), a CPU tensor through the plain version. Any other
 device, or an unknown `backend`, raises.
 """
@@ -25,11 +25,19 @@ BACKENDS = ("kernel", "plain")
 
 def connected_components(
     mask: torch.Tensor,
+    *,
     connectivity: int = 4,
     max_iters: Optional[int] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, H, W) or (H, W) bool -> int32 labels of the same shape.
+
+    connectivity, max_iters and backend are keyword-only: the JAX
+    function's positional order is (mask, max_iters, connectivity).
+
+    max_iters is accepted for the JAX signature and not used: both routes
+    always reach the fixpoint (the kernel is a union-find, not a sweep
+    loop; the plain version iterates until nothing changes).
 
     backend: None picks "kernel" for a CUDA tensor and "plain" for a CPU
     tensor; "plain" may also be asked for on CUDA (the reference the kernel
@@ -49,7 +57,7 @@ def connected_components(
     if backend == "kernel":
         if not mask.is_cuda:
             raise ValueError("the CC kernel needs a CUDA tensor")
-        labels = connected_components_cuda(mask, connectivity, max_iters)
+        labels = connected_components_cuda(mask, connectivity)
     else:
         labels = connected_components_plain(mask, connectivity)
     return labels[0] if squeeze else labels

@@ -11,8 +11,8 @@
   bounding-rect drop rule       per-component bbox extents
   render (contour and cluster)  per-pixel class lookup via component labels
 
-Every connected_components call runs the CC sweep kernel when the masks lie
-on the card (12 calls per batch for two text classes).
+Every connected_components call runs the union-find CC kernel when the masks
+lie on the card (12 calls per batch for two text classes).
 """
 
 from __future__ import annotations
