@@ -8,8 +8,11 @@
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the two paths give it, with TF32 off for both: fused bias-act
    forward and backward at (16, 512) and (16, 256, 256, 128) in float32 and
-   bfloat16; the fused blur tail at the six upsample shapes of the 256px
-   generator in float32 and bfloat16; union-find connected components,
+   bfloat16, and the forward at the edges of its launch geometry (C of 3, 8,
+   509, 512, fewer elements than one 16-byte vector, no rows, no bias, x at
+   a storage offset) in both dtypes; the fused blur tail at the six
+   upsample shapes of the 256px generator in float32 and bfloat16;
+   union-find connected components,
    4- and 8-connected and bit-identical, on random masks, a 1-px snake, an
    all-foreground batch, a checkerboard, isolated pixels, a ragged
    (3, 37, 53), the real path's masks at (32, 256, 256) and their union at
@@ -40,10 +43,15 @@
    `load_generator` and renders), once with every step synchronized and
    timed for the split by step kind; then one more iteration under
    torch.profiler (device busy share, kernels with the most device time).
+   The fused bias-act forward is then held against its plain version at
+   every (shape, dtype) the measured run launched, with its device time,
+   bound and launches x (device time - bound) per shape.
    Steps 6 and 7 run with PyTorch's defaults (TF32 cuDNN convolutions).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
-numbers, and {"ok": true, "device": {...}}. Any failed phase raises, and the
+numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
+bf16_device_ms and bf16_bound_ms, bfloat16 numbers at the main shape), and
+{"ok": true, "device": {...}}. Any failed phase raises, and the
 script exits non-zero; without a CUDA device it exits 2 before any phase.
 On one card, with the long per-phase record written to a file:
   python3 chip_smoke.py --detail chip_smoke_detail.json
@@ -135,6 +143,37 @@ def device_ms(fn, iters: int = 20):
     return busy_us / 1e3 / iters if busy_us > 0 else None
 
 
+def queued_ms(fn, iters: int, repeats: int = 3) -> float:
+    """Device time per fn() call with the host's dispatch hidden and no
+    profiler: a sleep kernel holds the stream while the host queues `iters`
+    calls, so CUDA events time them back to back on the card (kernels and
+    the gaps between launches). The sleep is doubled until it outlasts the
+    queueing; the median of `repeats` such means (the first of a process
+    was seen to read 4x its neighbours). After the training runs, a
+    torch.profiler profile of 20 calls was seen to hold only 8-10 of the
+    launches and records of other profiles, so the phases after them time
+    this way."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, means = 1 << 23, []
+    while len(means) < repeats:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        marks[2].record()
+        queueing_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if marks[0].elapsed_time(marks[1]) > queueing_ms:
+            means.append(marks[1].elapsed_time(marks[2]) / iters)
+        else:
+            cycles *= 2
+    return sorted(means)[repeats // 2]
+
+
 def bound(nbytes: float, nops: float) -> dict:
     """The least time for the work: the larger of its bytes (each input read
     once, each output written once) over the memory rate and its operations
@@ -153,8 +192,48 @@ def set_tf32(enabled: bool) -> None:
 # kernel phases
 
 
+def _summary(rows, key, main, keys=("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")):
+    """The kernels-line numbers of an elementwise kernel: the float32 row at
+    the main shape, and the bfloat16 row there (the training path's dtype) as
+    bf16_ms, bf16_device_ms and bf16_bound_ms."""
+    f32 = next(r for r in rows if r[key] == main and r["dtype"] == "float32")
+    bf16 = next(r for r in rows if r[key] == main and r["dtype"] == "bfloat16")
+    return {**{k: f32[k] for k in keys}, "bf16_ms": bf16["ms"],
+            "bf16_device_ms": bf16["device_ms"], "bf16_bound_ms": bf16["bound_ms"]}
+
+
+def _bias_act_bound(x: torch.Tensor) -> dict:
+    # read x, write y, read the C-wide bias; add, compare, two multiplies per element
+    return bound((2 * x.numel() + x.shape[-1]) * x.element_size(), 4 * x.numel())
+
+
+def _check_forward(what, x, b, tol) -> tuple:
+    """The forward kernel against its plain version on x (and b or None);
+    returns (max abs error, tolerance)."""
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import (
+        fused_leaky_relu_cuda,
+        fused_leaky_relu_plain,
+    )
+
+    got = fused_leaky_relu_cuda(x, b)
+    ref = fused_leaky_relu_plain(x, b)
+    if got.shape != x.shape or got.dtype != x.dtype:
+        raise AssertionError(f"fused_bias_act {what}: {tuple(got.shape)} {got.dtype}")
+    if x.numel() == 0:
+        return 0.0, 0.0
+    err = (got.float() - ref.float()).abs().max().item()
+    limit = tol * max(1.0, ref.float().abs().max().item())
+    if not err <= limit:
+        raise AssertionError(f"fused_bias_act {what}: err {err} > {limit}")
+    return err, limit
+
+
+BIAS_ACT_TOLERANCES = ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7))
+
+
 def check_fused_bias_act(detail):
     from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import (
+        bias_act_geometry,
         fused_leaky_relu_cuda,
         fused_leaky_relu_plain,
     )
@@ -162,30 +241,107 @@ def check_fused_bias_act(detail):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = 0.0
     for shape in ((16, 512), (16, 256, 256, 128)):
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+        for dtype, tol in BIAS_ACT_TOLERANCES:
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
             b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype)
-            got = fused_leaky_relu_cuda(x, b).float()
-            ref = fused_leaky_relu_plain(x, b).float()
-            err = (got - ref).abs().max().item()
-            limit = tol * max(1.0, ref.abs().max().item())
-            if not err <= limit:
-                raise AssertionError(f"fused_bias_act {shape} {dtype}: err {err} > {limit}")
+            err, limit = _check_forward(f"{shape} {dtype}", x, b, tol)
             iters = SMALL_ITERS if x.numel() < SMALL_NUMEL else 10
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "tolerance": limit, "iters": iters,
+                   "geometry": list(bias_act_geometry(x.numel(), shape[-1], x.element_size(),
+                                                      x.data_ptr(), x.data_ptr())),
                    "ms": bench_ms(lambda: fused_leaky_relu_cuda(x, b), iters),
                    "device_ms": device_ms(lambda: fused_leaky_relu_cuda(x, b)),
                    "plain_ms": bench_ms(lambda: fused_leaky_relu_plain(x, b), iters),
-                   # add, compare, two multiplies per element
-                   **bound(2 * x.numel() * x.element_size() + b.numel() * b.element_size(),
-                           4 * x.numel())}
+                   # the card's practical rate for these bytes: a copy of x
+                   "copy_ms": bench_ms(lambda: torch.empty_like(x).copy_(x), iters),
+                   **_bias_act_bound(x)}
             detail.append(row)
             worst = max(worst, err)
             log(f"fused_bias_act {row}")
-    main = next(r for r in detail if r["shape"] == [16, 256, 256, 128] and r["dtype"] == "float32")
-    return {**{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-            "max_abs_err": worst}
+    return {**_summary(detail, "shape", [16, 256, 256, 128]), "max_abs_err": worst}
+
+
+# (name, shape, with bias, x at a storage offset of one element)
+BIAS_ACT_EDGES = (
+    ("C=3", (37, 3), True, False),
+    ("C=8", (1000, 8), True, False),
+    ("C=509", (33, 509), True, False),
+    ("C=512", (129, 512), True, False),
+    ("numel below one vector", (3,), True, False),
+    ("no rows", (0, 8), True, False),
+    ("bias=None", (16, 64, 64, 512), False, False),
+    ("bias=None C=3", (37, 3), False, False),
+    ("misaligned C=8", (1000, 8), True, True),
+    ("misaligned C=512", (16, 8, 8, 512), True, True),
+    ("misaligned bias=None", (129, 512), False, True),
+)
+
+
+def check_fused_bias_act_edges(detail) -> float:
+    """The forward kernel against its plain version at the edges of its
+    geometry, float32 (1e-5) and bfloat16 (2^-7), both x max|ref|: channel
+    counts that do and do not fill a 16-byte vector, fewer elements than one
+    vector, no rows, no bias, and x one element past a 16-byte boundary
+    (a contiguous view at a storage offset), which must take the scalar
+    route. Returns the worst error."""
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import bias_act_geometry
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    worst = 0.0
+    for dtype, tol in BIAS_ACT_TOLERANCES:
+        for name, shape, with_bias, misaligned in BIAS_ACT_EDGES:
+            n = math.prod(shape)
+            buf = torch.randn(n + 1, generator=g, device="cuda").to(dtype)
+            x = (buf[1:] if misaligned else buf[:n].clone()).view(shape)
+            b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype) if with_bias else None
+            vec = bias_act_geometry(n, shape[-1], x.element_size(), x.data_ptr(), x.data_ptr())[0]
+            full = 16 // x.element_size()
+            want = 1 if misaligned or (shape[-1] * x.element_size()) % 16 else full
+            if n and vec != want:
+                raise AssertionError(f"fused_bias_act edge {name}: vector width {vec} != {want}")
+            err, limit = _check_forward(f"edge {name} {dtype}", x, b, tol)
+            row = {"case": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                   "bias": with_bias, "x_offset_bytes": x.data_ptr() % 16, "vec": vec,
+                   "max_abs_err": err, "tolerance": limit}
+            detail.append(row)
+            worst = max(worst, err)
+            log(f"fused_bias_act edge {row}")
+    return worst
+
+
+def check_fused_bias_act_path_shapes(detail, shapes, iterations: int) -> dict:
+    """The forward kernel at every (shape, dtype) the training path launched
+    (`shapes`: launches by key, from the measured run of `iterations`
+    iterations): held against the plain version, its device time
+    (`queued_ms`) beside its bound, and launches x (device_ms - bound_ms),
+    the time above the bound that shape costs the run; summed, and per
+    iteration."""
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import fused_leaky_relu_cuda
+
+    tols = dict(BIAS_ACT_TOLERANCES)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    excess = 0.0
+    for (shape, dtype), launches in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype)
+        err, limit = _check_forward(f"path {shape} {dtype}", x, b, tols[dtype])
+        iters = SMALL_ITERS if x.numel() < SMALL_NUMEL else 10
+        dev = queued_ms(lambda: fused_leaky_relu_cuda(x, b), iters)
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "launches": launches,
+               "max_abs_err": err, "tolerance": limit, "iters": iters,
+               "ms": bench_ms(lambda: fused_leaky_relu_cuda(x, b), iters), "device_ms": dev,
+               **_bias_act_bound(x)}
+        row["excess_ms"] = launches * (dev - row["bound_ms"])
+        excess += row["excess_ms"]
+        detail.append(row)
+        log(f"fused_bias_act path shape {row['shape']} {row['dtype']}: launches {launches}, "
+            f"ms {row['ms']:.6f}, device_ms {dev:.6f}, bound_ms {row['bound_ms']:.6f}, "
+            f"launches x (device - bound) {row['excess_ms']:.6f}")
+    summary = {"shapes": len(shapes), "launches": sum(shapes.values()),
+               "excess_ms": excess, "excess_ms_per_iteration": excess / iterations}
+    log(f"fused_bias_act on the training path: {summary}")
+    return summary
 
 
 def check_fused_bias_act_bwd(detail):
@@ -200,7 +356,7 @@ def check_fused_bias_act_bwd(detail):
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst = 0.0
     for shape in ((16, 512), (16, 256, 256, 128)):
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+        for dtype, tol in BIAS_ACT_TOLERANCES:
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
             b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype)
             y = fused_leaky_relu_cuda(x, b)
@@ -228,9 +384,8 @@ def check_fused_bias_act_bwd(detail):
             detail.append(row)
             worst = max(worst, err)
             log(f"fused_bias_act_bwd {row}")
-    main = next(r for r in detail if r["shape"] == [16, 256, 256, 128] and r["dtype"] == "float32")
-    return {**{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+    return {**_summary(detail, "shape", [16, 256, 256, 128],
+                       ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")),
             "max_abs_err": worst}
 
 
@@ -242,7 +397,8 @@ def check_fused_blur(detail):
     and bfloat16 (training). float32: max abs error <= 1e-4 (the 16
     taps are summed in another order); bfloat16: <= 2^-7 x max|ref|, both
     against the plain version in the working type. The kernels line reports
-    the 256^2 x 128 float32 shape and the worst float32 error."""
+    the 256^2 x 128 shape in float32 and bfloat16 and the worst float32
+    error."""
     from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import (
         blur_demod_noise_bias_act_cuda,
         blur_demod_noise_bias_act_plain,
@@ -279,9 +435,7 @@ def check_fused_blur(detail):
             if dtype == torch.float32:
                 worst = max(worst, err)
             log(f"fused_blur {row}")
-    main = next(r for r in detail if r["out"] == [BATCH, 256, 256, 128] and r["dtype"] == "float32")
-    return {**{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-            "max_abs_err": worst}
+    return {**_summary(detail, "out", [BATCH, 256, 256, 128]), "max_abs_err": worst}
 
 
 def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -845,6 +999,9 @@ def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
             setattr(upd, name, fn)
 
 
+PORT_KERNELS = ("bias_act_fwd_kernel", "bias_act_bwd_kernel", "blur_tail_kernel")
+
+
 def profile_iteration(trainer, top: int = 12) -> dict:
     """Two more training iterations: the first (8, with path length) fills
     the loader again, the second (9: D, G, EMA, as 3 of every 4 iterations)
@@ -865,10 +1022,17 @@ def profile_iteration(trainer, top: int = 12) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    port = {}
+    for e in kernels:  # the port's own kernels, wherever they rank
+        for name in PORT_KERNELS:
+            if name in e.key:
+                calls, secs = port.get(name, (0, 0.0))
+                port[name] = (calls + e.count, secs + e.self_device_time_total / 1e6)
     return {"iteration": updater.iteration - 1, "wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall,
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                             "device_s": e.self_device_time_total / 1e6} for e in kernels[:top]]}
+                             "device_s": e.self_device_time_total / 1e6} for e in kernels[:top]],
+            "port_kernels": {k: {"calls": c, "device_s": t} for k, (c, t) in port.items()}}
 
 
 def check_training_run(trainer, log_dir: Path) -> dict:
@@ -928,11 +1092,16 @@ def main() -> int:
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
     set_tf32(False)  # parity phases compare in full float32
-    detail = {name: [] for name in ("fused_bias_act", "fused_bias_act_bwd", "fused_blur",
-                                    "segmented_cc", "autograd", "training_iteration")}
+    detail = {name: [] for name in ("fused_bias_act", "fused_bias_act_edges",
+                                    "fused_bias_act_path_shapes", "fused_bias_act_bwd",
+                                    "fused_blur", "segmented_cc", "autograd",
+                                    "training_iteration")}
     kernels = {"fused_bias_act": check_fused_bias_act(detail["fused_bias_act"]),
                "fused_bias_act_bwd": check_fused_bias_act_bwd(detail["fused_bias_act_bwd"]),
                "fused_blur": check_fused_blur(detail["fused_blur"])}
+    edge_err = check_fused_bias_act_edges(detail["fused_bias_act_edges"])
+    kernels["fused_bias_act"]["max_abs_err"] = max(kernels["fused_bias_act"]["max_abs_err"],
+                                                   edge_err)
     check_autograd_functions(detail["autograd"])
     check_training_iteration(detail["training_iteration"])
     fns = counters()
@@ -967,8 +1136,10 @@ def main() -> int:
         run_training_cli(pages, root / "train_warmup")
         for fn in fns.values():
             fn.launches = 0
+        fns["fused_bias_act"].shapes.clear()
         trainer, train_wall = run_training_cli(pages, root / "train")
         training_launches = {name: fn.launches for name, fn in fns.items()}
+        training_shapes = dict(fns["fused_bias_act"].shapes)
         losses = check_training_run(trainer, root / "train")
         iters = trainer.updater.iteration
         step_seconds = {}
@@ -976,6 +1147,11 @@ def main() -> int:
         iteration_profile = profile_iteration(trainer)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    path_shapes = check_fused_bias_act_path_shapes(detail["fused_bias_act_path_shapes"],
+                                                   training_shapes, iters)
+    kernels["fused_bias_act"]["max_abs_err"] = max(
+        [kernels["fused_bias_act"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in detail["fused_bias_act_path_shapes"]])
     for path_name, launches, needed in (
             ("dataset", dataset_launches, ("fused_bias_act", "fused_blur", "segmented_cc")),
             ("training", training_launches, ("fused_bias_act", "fused_bias_act_bwd",
@@ -993,7 +1169,7 @@ def main() -> int:
                 "losses": losses,
                 "step_seconds_mean": {k: sum(v) / len(v) for k, v in step_seconds.items()},
                 "step_calls": {k: len(v) for k, v in step_seconds.items()},
-                "profile": iteration_profile}
+                "profile": iteration_profile, "fused_bias_act_shapes": path_shapes}
     log(f"training path (256px, batch {batch}, bf16, {iters} iterations): "
         f"{training['iterations_per_s']:.3f} iterations/s = {training['images_per_s']:.2f} "
         f"training images/s (train loop {trainer.seconds:.3f} s, whole CLI {train_wall:.3f} s, "
@@ -1005,6 +1181,8 @@ def main() -> int:
     log(f"profiled iteration {prof['iteration']}: wall {prof['wall_s']:.4f} s, device busy "
         f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
         "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s" for k in prof["top_kernels"]))
+    log("the port's kernels in that iteration: " + "; ".join(
+        f"{k} x{v['calls']} {v['device_s']:.6f} s" for k, v in prof["port_kernels"].items()))
 
     sources = {"fused_bias_act": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:61"),
                "fused_bias_act_bwd": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:87"),
@@ -1021,7 +1199,15 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
+                     "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+                     **{key: k[key] for key in ("bf16_ms", "bf16_device_ms", "bf16_bound_ms")
+                        if key in k}})
+        if "bf16_ms" in k:
+            log(f"{name} at the main shape: float32 {k['ms']:.4f} ms (device "
+                f"{k['device_ms']}) against a bound of {k['bound_ms']:.4f} "
+                f"({k['ms'] / k['bound_ms']:.2f}x); bfloat16 {k['bf16_ms']:.4f} ms (device "
+                f"{k['bf16_device_ms']}) against {k['bf16_bound_ms']:.4f} "
+                f"({k['bf16_ms'] / k['bf16_bound_ms']:.2f}x)")
     if cli.detail is not None:
         cli.detail.parent.mkdir(parents=True, exist_ok=True)
         cli.detail.write_text(json.dumps(

@@ -12,8 +12,10 @@ function in PyTorch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from collections import Counter
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,9 +24,59 @@ from synthesis_in_style_tpu_torch.ops.cuda import build
 _SQRT2 = math.sqrt(2.0)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                  ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+# launch geometry of the forward kernel: threads per block (the kernel's
+# kFwdThreads, its __launch_bounds__) and the blocks the grid aims at
+# (TARGET_BLOCKS_PER_SM for each of the H100's 132 SMs; the sweep behind
+# both numbers is described beside __launch_bounds__ in
+# csrc/fused_bias_act.cu)
+THREADS_PER_BLOCK = 512
+TARGET_BLOCKS_PER_SM = 16
+NUM_SMS = 132
+VECTOR_BYTES = 16
+
+
+def bias_act_geometry(numel: int, c: int, itemsize: int, x_ptr: int, y_ptr: int,
+                      threads: int = THREADS_PER_BLOCK,
+                      blocks_per_sm: int = TARGET_BLOCKS_PER_SM) -> Tuple[int, int, int, int]:
+    """(vec, threads, rows_per_step, grid) of the forward kernel's launch
+    over `numel` elements viewed as (numel / c, c) rows.
+
+    A thread owns `vec` consecutive channels (one 16-byte vector, or one
+    value when C x itemsize is not a multiple of 16 or x or y is not 16-byte
+    aligned) and walks rows with a stride of `rows_per_step`; the grid holds
+    rows_per_step x (c / vec) live threads, cut to about `blocks_per_sm`
+    blocks for each SM. A grid with fewer live threads than `threads` for
+    each SM gets smaller blocks (whole warps), so that a small call spreads
+    over as many SMs as it can fill. Only the pointers' alignment enters the
+    result, so the cache keys on that."""
+    aligned = (x_ptr | y_ptr) % VECTOR_BYTES == 0
+    return _geometry(numel, c, itemsize, aligned, threads, blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=256)  # a few dozen shapes per model; saves host time per launch
+def _geometry(numel: int, c: int, itemsize: int, aligned: bool, threads: int,
+              blocks_per_sm: int) -> Tuple[int, int, int, int]:
+    if numel <= 0 or c <= 0:
+        return 1, threads, 1, 1
+    vec = VECTOR_BYTES // itemsize
+    if not aligned or (c * itemsize) % VECTOR_BYTES:
+        vec = 1
+    c_vecs = c // vec
+    rows = numel // c
+    target_threads = NUM_SMS * blocks_per_sm * threads
+    rows_per_step = max(1, min(rows, target_threads // c_vecs))
+    live = rows_per_step * c_vecs
+    if live >= 2**31:
+        raise ValueError(f"fused bias-act: C = {c} is too wide for one launch")
+    warps_per_sm = -(-live // (NUM_SMS * 32))
+    threads = min(threads, 32 * warps_per_sm)
+    return vec, threads, rows_per_step, -(-live // threads)
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -67,24 +119,29 @@ def fused_leaky_relu_cuda(
             raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
         bias = bias.to(device=x.device, dtype=x.dtype).contiguous()
     y = torch.empty_like(x)
+    x_ptr, y_ptr = x.data_ptr(), y.data_ptr()
     fn = build.load("fused_bias_act", "sis_bias_act_fwd", _FWD_ARGTYPES)
     err = fn(
-        x.data_ptr(),
+        x_ptr,
         bias.data_ptr() if bias is not None else None,
-        y.data_ptr(),
+        y_ptr,
         x.numel(),
         c,
         DTYPE_CODES[x.dtype],
         negative_slope,
         scale,
+        *bias_act_geometry(x.numel(), c, x.element_size(), x_ptr, y_ptr),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "sis_bias_act_fwd")
     fused_leaky_relu_cuda.launches += 1
+    fused_leaky_relu_cuda.shapes[tuple(x.shape), x.dtype] += 1
     return y
 
 
 fused_leaky_relu_cuda.launches = 0
+# launches by (shape, dtype), counted with `launches`
+fused_leaky_relu_cuda.shapes = Counter()
 
 
 def fused_leaky_relu_bwd_plain(
