@@ -46,7 +46,23 @@
    The fused bias-act forward is then held against its plain version at
    every (shape, dtype) the measured run launched, with its device time,
    bound and launches x (device time - bound) per shape.
-   Steps 6 and 7 run with PyTorch's defaults (TF32 cuDNN convolutions).
+8. Chains the segmenter path onto step 6's PNG pairs: the segmenter
+   training CLI (`train`) on the shipped
+   configs/segmenter/stylegan2_doc_ufcn_segmenter.yaml (DocUFCN 32/64/128/256,
+   256px, batch 8, bfloat16) for 16 iterations with one validation pass at
+   the end, once to warm up and once measured (launch counts set to 0
+   before, read after); the loader alone and the training step alone (on a
+   batch already on the card, one step under torch.profiler); the trained
+   full-width DocUFCN forward, card vs CPU with TF32 off. Then
+   `analyze_image_segments --use-device-component-filter` with its snapshot
+   over 4 synthetic 2048x1536 pages and their ground truth, swept over
+   min_confidence 0.0 0.7 x min_contour_area 0 55 (warm-up, then measured
+   with launch counts; segmented_cc must have been launched on this path);
+   pages/s of the segmenter at 0.7 / 55, one page under torch.profiler, the
+   CC kernel bit for bit against its plain version on that page's closed
+   masks, and one page card vs CPU (TF32 off): class map >= 99.9 % equal,
+   >= 99.9 % of confidences within 1e-3.
+   Steps 6 to 8 run with PyTorch's defaults (TF32 cuDNN convolutions).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
@@ -59,7 +75,14 @@ On one card, with the long per-phase record written to a file:
 The same paths by hand: the training CLI
   python -m synthesis_in_style_tpu_torch.cli.train_stylegan_2 \
       configs/stylegan/stylegan_256px.yaml --images train.json -l <dir>
-and the dataset CLI on one of its snapshots (`<run>/checkpoints/iter_N.pt`).
+the dataset CLI on one of its snapshots (`<run>/checkpoints/iter_N.pt`), the
+segmenter training CLI on the dataset's pairs
+  python -m synthesis_in_style_tpu_torch.cli.train \
+      configs/segmenter/stylegan2_doc_ufcn_segmenter.yaml --images train.json \
+      --val-images val.json --class-to-color-map configs/handwriting_colors.json -l <dir>
+and page inference with its snapshot
+  python -m synthesis_in_style_tpu_torch.cli.analyze_image_segments <pages> \
+      -f eval.json -gt <gt> -o <out> -cds --use-device-component-filter
 Their CPU counterparts, against the JAX package at small sizes:
   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q
 """
@@ -999,40 +1022,46 @@ def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
             setattr(upd, name, fn)
 
 
-PORT_KERNELS = ("bias_act_fwd_kernel", "bias_act_bwd_kernel", "blur_tail_kernel")
+PORT_KERNELS = ("bias_act_fwd_kernel", "bias_act_bwd_kernel", "blur_tail_kernel",
+                "cc_local_kernel", "cc_boundary_kernel", "cc_flatten_kernel")
 
 
-def profile_iteration(trainer, top: int = 12) -> dict:
-    """Two more training iterations: the first (8, with path length) fills
-    the loader again, the second (9: D, G, EMA, as 3 of every 4 iterations)
-    runs under torch.profiler: the device's busy share of its wall time, and
-    the kernels with the most device time."""
+def profile_call(fn, top: int = 12) -> dict:
+    """fn() once under torch.profiler: its wall time, the device's busy
+    share of it, the kernels with the most device time, and the port's own
+    kernels wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
 
-    updater = trainer.updater
-    updater.update()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        updater.update()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    updater.iterators["images"].close()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     port = {}
-    for e in kernels:  # the port's own kernels, wherever they rank
+    for e in kernels:
         for name in PORT_KERNELS:
             if name in e.key:
                 calls, secs = port.get(name, (0, 0.0))
                 port[name] = (calls + e.count, secs + e.self_device_time_total / 1e6)
-    return {"iteration": updater.iteration - 1, "wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall,
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "device_s": e.self_device_time_total / 1e6} for e in kernels[:top]],
             "port_kernels": {k: {"calls": c, "device_s": t} for k, (c, t) in port.items()}}
+
+
+def profile_iteration(trainer, top: int = 12) -> dict:
+    """Two more training iterations: the first fills the loader again, the
+    second runs under torch.profiler (`profile_call`)."""
+    updater = trainer.updater
+    updater.update()
+    out = {"iteration": updater.iteration, **profile_call(updater.update, top)}
+    updater.iterators["images"].close()
+    return out
 
 
 def check_training_run(trainer, log_dir: Path) -> dict:
@@ -1068,6 +1097,373 @@ def check_training_run(trainer, log_dir: Path) -> dict:
                              f"{bool(torch.isfinite(image).all())}")
     log(f"snapshot {snap.name}: g_ema loads through load_generator and renders a 256px image")
     return losses
+
+
+# ---------------------------------------------------------------------------
+# segmenter path: DocUFCN training on the dataset path's PNG pairs, then
+# patch-tiled page inference whose small-region filter runs the CC kernel
+
+
+REPO_ROOT = Path(__file__).resolve().parent
+SEG_CONFIG = REPO_ROOT / "configs" / "segmenter" / "stylegan2_doc_ufcn_segmenter.yaml"
+COLOR_MAP = REPO_ROOT / "configs" / "handwriting_colors.json"
+SEG_OVERRIDES = {"max_iter": 16, "snapshot_save_iter": 16, "log_iter": 8}
+PAGE_H, PAGE_W, NUM_PAGES = 1536, 2048, 4
+SWEEP = {"min_confidence": ("0.0", "0.7"), "min_contour_area": ("0", "55")}
+DEVICE = "cuda"  # the segmenter phase's device (its CPU rehearsal sets "cpu")
+
+
+def _sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_segmenter_config(root: Path):
+    """The shipped DocUFCN config (256px, batch 8, bfloat16) as JSON, with
+    16 iterations and a snapshot at 16; returns (path, config)."""
+    import yaml
+
+    config = {**yaml.safe_load(SEG_CONFIG.read_text()), **SEG_OVERRIDES}
+    path = root / "docufcn_config.json"
+    path.write_text(json.dumps(config))
+    return path, config
+
+
+def run_segmenter_training(dataset: Path, config: Path, log_dir: Path):
+    """The segmenter training CLI on the card over the dataset path's PNG
+    pairs (train.json; one validation pass over val.json at the end)."""
+    from synthesis_in_style_tpu_torch.cli import train as cli
+
+    argv = [str(config), "--images", str(dataset / "train.json"),
+            "--val-images", str(dataset / "val.json"), "--class-to-color-map", str(COLOR_MAP),
+            "-l", str(log_dir), "-ln", "docufcn", "-d", DEVICE]
+    args = cli.build_parser().parse_args(argv)
+    args.log_dir = str(log_dir / "run")
+    _sync()
+    t0 = time.perf_counter()
+    trainer = cli.main(args)
+    _sync()
+    return trainer, time.perf_counter() - t0
+
+
+def check_segmenter_run(trainer, log_dir: Path) -> Path:
+    """Finite losses, a validation pass in the log, parameters moved from
+    the seeded init, and the snapshot; returns the snapshot's path."""
+    run = log_dir / "run"
+    lines = [json.loads(line) for line in (run / "log.jsonl").read_text().splitlines()]
+    losses = [line["loss/softmax"] for line in lines if "loss/softmax" in line]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"segmenter losses not finite: {losses}")
+    evals = [line for line in lines if "evaluation/dice_weighted_avg" in line]
+    if len(evals) != 1:
+        raise AssertionError(f"expected one validation pass, log has {len(evals)}")
+    fresh = trainer.updater.network.__class__(num_classes=3).init_weights(
+        torch.Generator().manual_seed(0))
+    moved = sum(not torch.equal(a, b.cpu()) for a, b in
+                zip(fresh.parameters(), trainer.updater.network.parameters()))
+    if moved == 0:
+        raise AssertionError("DocUFCN: no parameter moved")
+    snap = run / "checkpoints" / f"iter_{SEG_OVERRIDES['max_iter']:08d}.pt"
+    if not snap.exists():
+        raise AssertionError(f"no snapshot {snap}")
+    log(f"DocUFCN: {moved} of {len(list(fresh.parameters()))} parameter tensors moved; "
+        f"losses {losses}; validation {evals[0]}")
+    return snap
+
+
+def check_doc_ufcn_card_vs_cpu(snap: Path, dataset: Path) -> float:
+    """The trained full-width DocUFCN forward (eval) on the card against the
+    CPU, TF32 off, on two validation patches: max abs diff <= 1e-3 x
+    max|ref|."""
+    from synthesis_in_style_tpu_torch.data.segmentation_dataset import SegmentationDataset
+    from synthesis_in_style_tpu_torch.models.doc_ufcn import DocUFCN
+    from synthesis_in_style_tpu_torch.utils.checkpoint import load_segmenter_snapshot
+
+    data = SegmentationDataset(dataset / "val.json", COLOR_MAP, root=dataset, image_size=256)
+    x = torch.stack([data[i]["images"] for i in range(2)]).permute(0, 3, 1, 2).contiguous()
+    state = load_segmenter_snapshot(snap)["segmentation_network"]
+
+    def logits(device):
+        net = DocUFCN(num_classes=3)
+        net.load_state_dict(state)
+        with torch.no_grad():
+            return net.to(device).eval()(x.to(device)).float().cpu()
+
+    set_tf32(False)
+    try:
+        card, cpu = logits(DEVICE), logits("cpu")
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not torch.isfinite(card).all():
+        raise AssertionError("DocUFCN: non-finite logits on the card")
+    rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    if not rel <= 1e-3:
+        raise AssertionError(f"DocUFCN 256px card vs CPU: relative error {rel} > 1e-3")
+    log(f"DocUFCN 256px (32/64/128/256) card vs CPU, float32, TF32 off: max relative error "
+        f"{rel:.3g}")
+    return rel
+
+
+def write_pages(root: Path):
+    """NUM_PAGES synthetic 2048x1536 pages (light paper, lines of dark
+    printed bars and thinner handwritten strokes, specks) and their colour
+    ground truth, from a seeded numpy generator."""
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.utils.png import write_png
+
+    pages, gt = root / "doc_pages", root / "doc_pages_gt"
+    pages.mkdir()
+    gt.mkdir()
+    rs = np.random.default_rng(SEED + 7)
+    for i in range(NUM_PAGES):
+        page = np.full((PAGE_H, PAGE_W, 3), 232, np.uint8) + \
+            rs.integers(0, 16, (PAGE_H, PAGE_W, 1), np.uint8)
+        mask = np.zeros((PAGE_H, PAGE_W, 3), np.uint8)
+        for y in range(96, PAGE_H - 96, 48):
+            printed = rs.random() < 0.6
+            x = int(rs.integers(80, 300))
+            while x < PAGE_W - 200:
+                w = int(rs.integers(20, 120))
+                h = 14 if printed else int(rs.integers(4, 10))
+                dy = 0 if printed else int(rs.integers(-6, 7))
+                page[y + dy:y + dy + h, x:x + w] = rs.integers(10, 70)
+                mask[y + dy:y + dy + h, x:x + w] = (0, 0, 255) if printed else (255, 0, 0)
+                x += w + int(rs.integers(8, 30))
+        for _ in range(400):  # specks
+            y, x = rs.integers(0, PAGE_H - 3), rs.integers(0, PAGE_W - 3)
+            page[y:y + 2, x:x + 2] = rs.integers(20, 120)
+        write_png(pages / f"page_{i}.png", page)
+        write_png(gt / f"page_{i}_gt.png", mask)
+    return pages, gt
+
+
+def run_analyze(pages: Path, gt: Path, snap: Path, out: Path, sweep=SWEEP) -> float:
+    """The page inference CLI on the card (vote assembly, device component
+    filter) over `pages`, every metric; returns its wall seconds."""
+    from synthesis_in_style_tpu_torch.cli import analyze_image_segments as cli
+
+    eval_config = out.parent / f"{out.name}_eval.json"
+    eval_config.write_text(json.dumps({"checkpoint": str(snap),
+                                       "class_to_color_map": str(COLOR_MAP)}))
+    argv = [str(pages), "-f", str(eval_config), "-gt", str(gt), "-o", str(out),
+            "-cds", "-cio", "-cpr", "-cre", "--min-confidence", *sweep["min_confidence"],
+            "--min-contour-area", *sweep["min_contour_area"], "--use-device-component-filter",
+            "-d", DEVICE]
+    _sync()
+    t0 = time.perf_counter()
+    cli.main(cli.parse_and_check_arguments(argv))
+    _sync()
+    return time.perf_counter() - t0
+
+
+def check_results(out: Path) -> dict:
+    results = json.loads((out / "results.json").read_text())
+    runs = results["runs"]
+    want = len(SWEEP["min_confidence"]) * len(SWEEP["min_contour_area"])
+    if len(runs) != want:
+        raise AssertionError(f"results.json has {len(runs)} runs, expected {want}")
+    scores = {}
+    for run in runs:
+        if len(run["confusion_matrices"]) != NUM_PAGES:
+            raise AssertionError(f"run {run['hyperparams']}: {len(run['confusion_matrices'])} "
+                                 f"pages evaluated")
+        key = f"conf {run['hyperparams']['min_confidence']} area " \
+              f"{run['hyperparams']['min_contour_area']}"
+        scores[key] = {m: run[f"average_{m}_scores"]["weighted_avg"]["score"]
+                       for m in ("dice", "iou", "precision", "recall")}
+        if not all(0.0 <= v <= 1.0 for v in scores[key].values()):
+            raise AssertionError(f"{key}: scores out of range {scores[key]}")
+    log(f"results.json: {want} sweep runs x {NUM_PAGES} pages; weighted averages {scores}")
+    return scores
+
+
+def _page_segmenter(snap: Path, device: str):
+    from synthesis_in_style_tpu_torch.segmentation.analysis_segmenter import (
+        VotingAssemblySegmenter,
+    )
+
+    seg = VotingAssemblySegmenter(snap, COLOR_MAP, use_device_component_filter=True,
+                                  device=device)
+    seg.set_hyperparams({"min_confidence": 0.7, "min_contour_area": 55})
+    return seg
+
+
+def page_path_numbers(snap: Path, pages: Path, detail) -> dict:
+    """On the card, at min_confidence 0.7 and min_contour_area 55: pages/s
+    of segment_image_classes over the pages (warm, ending in the class
+    map's copy to the host), one page under torch.profiler, the CC kernel
+    held bit for bit against its plain version on one batch's closed masks
+    (the shape and content the page path gives it) and timed there, and one
+    page's class map, card against CPU (TF32 off), >= 99.9 % equal."""
+    from PIL import Image
+
+    from synthesis_in_style_tpu_torch.segmentation import analysis_segmenter as pages_module
+    from synthesis_in_style_tpu_torch.segmentation.device_cc import connected_components
+
+    images = [Image.open(p).convert("RGB") for p in sorted(pages.glob("*.png"))]
+    seg = _page_segmenter(snap, DEVICE)
+    seg.segment_image_classes(images[0])
+    _sync()
+    t0 = time.perf_counter()
+    for image in images:
+        seg.segment_image_classes(image)
+    seconds = time.perf_counter() - t0
+    profile = profile_call(lambda: seg.segment_image_classes(images[0]))
+
+    # the CC input of the page path: closed text masks of the first page's
+    # batches at min_confidence 0.0 and 0.7, taken where the segmenter hands
+    # them to filter_small_components; the batch whose foreground share is
+    # nearest one half is held and timed
+    captured = []
+    original = pages_module.filter_small_components
+
+    def capture(mask, min_area):
+        captured.append(mask)
+        return original(mask, min_area)
+
+    pages_module.filter_small_components = capture
+    try:
+        for confidence in (0.0, 0.7):
+            seg.set_hyperparams({"min_confidence": confidence})
+            seg.segment_image_classes(images[0])
+    finally:
+        pages_module.filter_small_components = original
+        seg.set_hyperparams({"min_confidence": 0.7})
+    masks = min(captured, key=lambda m: abs(float(m.float().mean()) - 0.5))
+    got = _no_sync(lambda: connected_components(masks, backend="kernel"))
+    ref = connected_components(masks, backend="plain")
+    if not torch.equal(got, ref):
+        raise AssertionError("segmented_cc on the page path's masks: labels differ")
+    own = torch.arange(masks[0].numel(), device=masks.device).view(masks.shape[1:])
+    components = int((masks & (ref == own)).sum())  # roots: labelled with their own index
+    cc = {"case": "page path masks (2 classes x 8 patches), connectivity 4",
+          "shape": list(masks.shape), "max_abs_err": 0,
+          "foreground_share": float(masks.float().mean()), "components": components,
+          "ms": bench_ms(lambda: _no_sync(lambda: connected_components(
+              masks, backend="kernel")), iters=50, warmup=2),
+          "plain_ms": bench_ms(lambda: connected_components(masks, backend="plain"),
+                               iters=2, warmup=1),
+          **bound(masks.numel() * 5, masks.numel() * 4)}
+    detail.append(cc)
+    log(f"segmented_cc {cc}")
+
+    set_tf32(False)
+    try:
+        card = _page_segmenter(snap, DEVICE).segment_image(images[0])
+        cpu = _page_segmenter(snap, "cpu").segment_image(images[0])
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # the class map is segment_image_classes' argmax (numpy's and torch's
+    # both take the first maximum); a confidence may differ where the
+    # threshold or the area filter cuts differently by a rounding
+    agree = float((card.argmax(-1) == cpu.argmax(-1)).mean())
+    close = float((abs(card - cpu).max(-1) <= 1e-3).mean())
+    if not (agree >= 0.999 and close >= 0.999):
+        raise AssertionError(f"page card vs CPU: {agree:.6f} of class ids and {close:.6f} of "
+                             f"confidences (within 1e-3) agree")
+    log(f"page {PAGE_W}x{PAGE_H} card vs CPU (TF32 off): class map {agree:.6f} of pixels "
+        f"agree, confidences within 1e-3 at {close:.6f} (max abs diff "
+        f"{float(abs(card - cpu).max()):.3g}); text share {float((card.argmax(-1) > 0).mean()):.4f}")
+    return {"pages": len(images), "seconds": seconds, "pages_per_s": len(images) / seconds,
+            "profile": profile, "cc": cc, "card_vs_cpu_agreement": agree,
+            "card_vs_cpu_confidences_within_1e-3": close}
+
+
+def segmenter_breakdown(trainer, top: int = 12) -> dict:
+    """The two halves of a segmenter iteration, apart: the training loader
+    alone (a fresh pass: seconds to its first batch, which its workers'
+    start sets, then images/s over up to 18 more batches), and the training
+    step alone on one batch already on the card (10 synchronized steps,
+    then one under torch.profiler)."""
+    from synthesis_in_style_tpu_torch.updaters.segmentation_updater import standard_train_step
+
+    updater = trainer.updater
+    loader = updater.iterators["images"]._loader
+    t0 = time.perf_counter()
+    batches = iter(loader)
+    batch = next(batches)
+    first_s = time.perf_counter() - t0
+    n = min(18, len(loader) - 1)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(batches)
+    loader_s = time.perf_counter() - t0
+    del batches
+    size = batch["images"].shape[0]
+    on_card = {"images": batch["images"].to(updater.device).permute(0, 3, 1, 2),
+               "segmented": batch["segmented"].to(updater.device)}
+
+    def step():
+        standard_train_step(updater.network, updater.optimizer, on_card, updater.class_weights,
+                            updater.compute_dtype)
+
+    step()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    _sync()
+    step_s = (time.perf_counter() - t0) / 10
+    out = {"loader_first_batch_s": first_s, "loader_batches": n,
+           "loader_images_per_s": n * size / loader_s, "step_s": step_s,
+           "step_images_per_s": size / step_s, "step_profile": profile_call(step, top)}
+    log(f"segmenter iteration apart: loader first batch {first_s:.3f} s, then "
+        f"{out['loader_images_per_s']:.2f} images/s over {n} batches; step alone "
+        f"{step_s:.4f} s = {out['step_images_per_s']:.2f} images/s")
+    return out
+
+
+def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> dict:
+    """DocUFCN training on `dataset`'s PNG pairs (warm-up run, then a
+    measured run with launch counts from 0), then page inference with its
+    snapshot (warm-up, then the measured sweep), then the page path's
+    numbers; logs and returns them."""
+    seg_config, seg_settings = write_segmenter_config(root)
+    run_segmenter_training(dataset, seg_config, root / "seg_warmup")
+    for fn in fns.values():
+        fn.launches = 0
+    trainer, cli_seconds = run_segmenter_training(dataset, seg_config, root / "seg")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    snap = check_segmenter_run(trainer, root / "seg")
+    iters = trainer.updater.iteration
+    breakdown = segmenter_breakdown(trainer)
+    doc_ufcn_rel = check_doc_ufcn_card_vs_cpu(snap, dataset)
+    pages, pages_gt = write_pages(root)
+    run_analyze(pages, pages_gt, snap, root / "analyze_warmup",
+                {"min_confidence": ("0.7",), "min_contour_area": ("55",)})
+    for fn in fns.values():
+        fn.launches = 0
+    analyze_seconds = run_analyze(pages, pages_gt, snap, root / "analyze")
+    page_launches = {name: fn.launches for name, fn in fns.items()}
+    page_scores = check_results(root / "analyze")
+    page = page_path_numbers(snap, pages, cc_detail)
+
+    batch = seg_settings["batch_size"]
+    out = {"iterations": iters, "batch": batch, "loop_seconds": trainer.seconds,
+           "cli_seconds": cli_seconds, "images_per_s": iters * batch / trainer.seconds,
+           "launches": launches, **breakdown,
+           "doc_ufcn_card_vs_cpu_rel_err": doc_ufcn_rel, "analyze_cli_seconds": analyze_seconds,
+           "analyze_cli_pages": NUM_PAGES * len(SWEEP["min_confidence"])
+           * len(SWEEP["min_contour_area"]),
+           "page_launches": page_launches, "page_scores": page_scores, "page": page}
+    log(f"segmenter training path (DocUFCN 32/64/128/256, 256px, batch {batch}, bf16, "
+        f"{iters} iterations): {out['images_per_s']:.2f} training images/s "
+        f"(train loop {trainer.seconds:.3f} s incl. the validation pass, whole CLI "
+        f"{cli_seconds:.3f} s, warm); launches {launches}")
+    log(f"page inference path ({PAGE_W}x{PAGE_H}, patches 256, batch {batch}, vote "
+        f"assembly, min_confidence 0.7, min_contour_area 55): {page['pages_per_s']:.3f} pages/s "
+        f"(segment_image_classes, warm); analyze CLI {out['analyze_cli_pages']} page "
+        f"passes in {analyze_seconds:.3f} s; launches {page_launches}")
+    for name, prof in (("segmenter training step", breakdown["step_profile"]),
+                       ("page", page["profile"])):
+        log(f"profiled {name}: wall {prof['wall_s']:.4f} s, device busy "
+            f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+            "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
+                      for k in prof["top_kernels"]))
+    return out
 
 
 def main() -> int:
@@ -1145,6 +1541,10 @@ def main() -> int:
         step_seconds = {}
         run_training_cli(pages, root / "train_timed", step_seconds)
         iteration_profile = profile_iteration(trainer)
+
+        # the segmenter path on the dataset path's PNG pairs
+        segmenter = segmenter_phase(root, root / "generated_images", fns,
+                                    detail["segmented_cc"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     path_shapes = check_fused_bias_act_path_shapes(detail["fused_bias_act_path_shapes"],
@@ -1155,7 +1555,8 @@ def main() -> int:
     for path_name, launches, needed in (
             ("dataset", dataset_launches, ("fused_bias_act", "fused_blur", "segmented_cc")),
             ("training", training_launches, ("fused_bias_act", "fused_bias_act_bwd",
-                                             "fused_blur"))):
+                                             "fused_blur")),
+            ("page_inference", segmenter["page_launches"], ("segmented_cc",))):
         for name in needed:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path_name} path")
@@ -1184,6 +1585,10 @@ def main() -> int:
     log("the port's kernels in that iteration: " + "; ".join(
         f"{k} x{v['calls']} {v['device_s']:.6f} s" for k, v in prof["port_kernels"].items()))
 
+    page_cc = segmenter["page"]["cc"]
+    kernels["segmented_cc"].update({"page_ms": page_cc["ms"], "page_plain_ms": page_cc["plain_ms"],
+                                    "page_bound_ms": page_cc["bound_ms"]})
+
     sources = {"fused_bias_act": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:61"),
                "fused_bias_act_bwd": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:87"),
                "fused_blur": ("csrc/fused_blur.cu", "ops/pallas/fused_blur.py:223"),
@@ -1191,7 +1596,9 @@ def main() -> int:
     rows = []
     for name, (src, tpu) in sources.items():
         k = kernels[name]
-        by_path = {"dataset": dataset_launches[name], "training": training_launches[name]}
+        by_path = {"dataset": dataset_launches[name], "training": training_launches[name],
+                   "segmenter_training": segmenter["launches"][name],
+                   "page_inference": segmenter["page_launches"][name]}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
                      "replaces": f"synthesis_in_style_tpu/{tpu}",
@@ -1200,7 +1607,8 @@ def main() -> int:
                      "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
-                     **{key: k[key] for key in ("bf16_ms", "bf16_device_ms", "bf16_bound_ms")
+                     **{key: k[key] for key in ("bf16_ms", "bf16_device_ms", "bf16_bound_ms",
+                                                "page_ms", "page_plain_ms", "page_bound_ms")
                         if key in k}})
         if "bf16_ms" in k:
             log(f"{name} at the main shape: float32 {k['ms']:.4f} ms (device "
@@ -1213,7 +1621,7 @@ def main() -> int:
         cli.detail.write_text(json.dumps(
             {"card": smi, "kernels": rows, "detail": detail,
              "path": {**path, "launches": dataset_launches, "stages": stages},
-             "training": training}, indent=1))
+             "training": training, "segmenter": segmenter}, indent=1))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

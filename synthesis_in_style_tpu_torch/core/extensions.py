@@ -1,6 +1,6 @@
 """Trainer extensions (counterpart of synthesis_in_style_tpu/core/extensions.py):
-snapshots, the jsonl log, learning-rate reports, sample images and the
-collapse alarm."""
+snapshots, the jsonl log, learning-rate reports, sample images, evaluation
+and the collapse alarm."""
 
 from __future__ import annotations
 
@@ -102,6 +102,30 @@ class ImagePlotter(Extension):
         image = np.asarray(self.render_fn(trainer))
         self.image_dir.mkdir(parents=True, exist_ok=True)
         write_png(self.image_dir / f"iter_{trainer.updater.iteration:08d}.png", image)
+
+
+class Evaluator(Extension):
+    """Runs `eval_fn(trainer) -> {name: scalar}` on its trigger and once
+    more at the end of training, reports the values under `prefix`, and
+    keeps them as `trainer.last_evaluation`."""
+
+    priority = 250
+
+    def __init__(self, eval_fn: Callable[[Trainer], Dict[str, float]], trigger,
+                 prefix: str = "evaluation"):
+        super().__init__(trigger)
+        self.eval_fn = eval_fn
+        self.prefix = prefix
+
+    def run(self, trainer: Trainer):
+        metrics = self.eval_fn(trainer)
+        if metrics:
+            trainer.reporter.add_observation(metrics, prefix=self.prefix)
+            trainer.last_evaluation = {"iteration": trainer.updater.iteration,
+                                       **{k: float(v) for k, v in metrics.items()}}
+
+    def finalize(self, trainer: Trainer):
+        self.run(trainer)
 
 
 class TrainingDiverged(RuntimeError):

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import (
     connected_components_cuda,
@@ -166,6 +167,23 @@ def component_bboxes(labels: torch.Tensor) -> torch.Tensor:
         out.append(acc)
     boxes = torch.stack(out, dim=-1)
     return boxes[0] if squeeze else boxes
+
+
+def binary_closing(mask: torch.Tensor, size: int = 5) -> torch.Tensor:
+    """Morphological close (dilate, then erode) with a size x size square,
+    of a (B, H, W) or (H, W) bool mask. Outside the image counts as neither
+    foreground nor background: max_pool2d pads with -inf, so the dilation
+    ignores the border, and the erosion is -max_pool2d(-x), which pads
+    with +inf."""
+    squeeze = mask.ndim == 2
+    if squeeze:
+        mask = mask[None]
+    pad = size // 2
+    x = mask[:, None].float()
+    dilated = F.max_pool2d(x, size, stride=1, padding=pad)
+    closed = -F.max_pool2d(-dilated, size, stride=1, padding=pad)
+    out = closed[:, 0] > 0.5
+    return out[0] if squeeze else out
 
 
 def filter_small_components(mask: torch.Tensor, min_area: float) -> torch.Tensor:

@@ -61,14 +61,19 @@ class StyleGAN2Config:
 class GANOptimizer:
     """optax.chain(clip_by_global_norm(max_norm), adam(schedule, b1, b2,
     eps)) over a fixed parameter list, on torch.optim.Adam (whose state
-    dict is the reference snapshot's optimizer entry)."""
+    dict is the reference snapshot's optimizer entry). With `weight_decay`,
+    the chain is clip -> add_decayed_weights(weight_decay) -> adam: torch's
+    Adam adds weight_decay * param to the clipped gradient before its
+    moments (the segmenter's optimizer)."""
 
     def __init__(self, params: Sequence[nn.Parameter], schedule: Callable[[int], float],
-                 betas: Tuple[float, float], eps: float = 1e-8, max_norm: float = 1.0):
+                 betas: Tuple[float, float], eps: float = 1e-8, max_norm: float = 1.0,
+                 weight_decay: float = 0.0):
         self.params = list(params)
         self.schedule = schedule
         self.max_norm = max_norm
-        self.adam = torch.optim.Adam(self.params, lr=schedule(0), betas=betas, eps=eps)
+        self.adam = torch.optim.Adam(self.params, lr=schedule(0), betas=betas, eps=eps,
+                                     weight_decay=weight_decay)
 
     @property
     def count(self) -> int:

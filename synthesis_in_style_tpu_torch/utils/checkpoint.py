@@ -208,3 +208,112 @@ def load_gan_snapshot(path: Union[str, Path]) -> Dict[str, Any]:
     mpl: Optional[float] = (ckpt.get("training_state") or {}).get("mean_path_length")
     out["mean_path_length"] = None if mpl is None else float(mpl)
     return out
+
+
+def _conv_bn_from_jax(prefix: str, p: Dict[str, Any], s: Dict[str, Any],
+                      out: Dict[str, np.ndarray], transpose: bool = False,
+                      channel_order: Optional[np.ndarray] = None) -> None:
+    """One JAX ConvBNActDrop ({conv, bn} params and bn batch_stats) -> the
+    reference's `{prefix}.conv.*`, `{prefix}.bn.*` keys. `channel_order`
+    reorders the output channels (port channel i <- JAX channel order[i])."""
+    k = np.asarray(p["conv"]["kernel"])
+    if transpose:
+        # flax ConvTranspose correlates the zero-inserted input with the
+        # kernel as stored; torch stamps the kernel at each input pixel: the
+        # spatial axes flip. (kh, kw, in, out) -> (in, out, kh, kw)
+        w = k[::-1, ::-1].transpose(2, 3, 0, 1)
+    else:
+        w = k.transpose(3, 2, 0, 1)  # (kh, kw, in, out) -> (out, in, kh, kw)
+    leaves = {"conv.weight": w, "conv.bias": p["conv"]["bias"],
+              "bn.weight": p["bn"]["scale"], "bn.bias": p["bn"]["bias"],
+              "bn.running_mean": s["bn"]["mean"], "bn.running_var": s["bn"]["var"]}
+    for name, value in leaves.items():
+        value = np.asarray(value)
+        if channel_order is not None:
+            value = value[channel_order]
+        out[f"{prefix}.{name}"] = value
+    out[f"{prefix}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def doc_ufcn_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's DocUFCN variables ({"params", "batch_stats"},
+    numpy leaves) -> the port's DocUFCN state dict, in the reference's key
+    layout (the inverse of `torch_doc_ufcn_to_flax` in the JAX package).
+
+    A pixel-shuffle decoder block's conv orders its 4C output channels as
+    (parity, channel) in the JAX package and as (channel, parity) for
+    `nn.PixelShuffle`; the channels are permuted to match."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+    n_enc = sum(1 for name in params if name.startswith("encoder_"))
+    for b in range(n_enc):
+        block_p, block_s = params[f"encoder_{b}"], stats[f"encoder_{b}"]
+        for i in range(len(block_p)):
+            _conv_bn_from_jax(f"encoder_blocks.{b}.{i}", block_p[f"conv_{i}"],
+                              block_s[f"conv_{i}"], sd)
+    n_dec = sum(1 for name in params if name.startswith("decoder_"))
+    for d in range(n_dec):
+        block_p, block_s = params[f"decoder_{d}"], stats[f"decoder_{d}"]
+        if "upsample" in block_p:
+            _conv_bn_from_jax(f"decoder_blocks.{d}.conv", block_p["conv"], block_s["conv"], sd)
+            _conv_bn_from_jax(f"decoder_blocks.{d}.upsample", block_p["upsample"],
+                              block_s["upsample"], sd, transpose=True)
+        else:
+            c4 = np.asarray(block_p["conv"]["conv"]["bias"]).shape[0]
+            c = c4 // 4
+            # port channel ch * 4 + parity <- JAX channel parity * C + ch
+            order = np.array([parity * c + ch for ch in range(c) for parity in range(4)])
+            _conv_bn_from_jax(f"decoder_blocks.{d}.conv", block_p["conv"], block_s["conv"], sd,
+                              channel_order=order)
+    sd["classifier.weight"] = np.asarray(params["classifier"]["kernel"]).transpose(3, 2, 0, 1)
+    sd["classifier.bias"] = np.asarray(params["classifier"]["bias"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) if v.dtype == np.int64
+            else torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+SEGMENTATION_NETWORK_KEY = "segmentation_network"
+
+
+def save_segmenter_snapshot(path: Union[str, Path], network: torch.nn.Module,
+                            optimizer: Optional[torch.optim.Optimizer] = None,
+                            iteration: Optional[int] = None) -> None:
+    """Write a segmenter training snapshot: `segmentation_network` (the
+    network's state dict, reference layout) and `main_optimizer` (torch
+    optimizer state), through a temporary file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    snap: Dict[str, Any] = {SEGMENTATION_NETWORK_KEY: network.state_dict()}
+    if optimizer is not None:
+        snap["main_optimizer"] = optimizer.state_dict()
+    if iteration is not None:
+        snap["iteration"] = int(iteration)
+    torch.save(snap, tmp)
+    os.replace(tmp, path)
+
+
+def load_segmenter_snapshot(path: Union[str, Path]) -> Dict[str, Any]:
+    """{"segmentation_network": state dict[, "main_optimizer": ...,
+    "iteration": ...]} from a snapshot of the port, or from a reference
+    `.pt` (the same key, or a bare DocUFCN state dict)."""
+    path = Path(path)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax snapshot of the JAX package); the "
+            "port loads .pt snapshots, see ROADMAP.md"
+        )
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    if SEGMENTATION_NETWORK_KEY in ckpt:
+        return ckpt
+    if "classifier.weight" in ckpt:
+        return {SEGMENTATION_NETWORK_KEY: ckpt}
+    raise KeyError(f"{path}: no {SEGMENTATION_NETWORK_KEY!r} state dict; found {sorted(ckpt)}")
+
+
+def snapshot_iteration(path: Union[str, Path]) -> int:
+    """`.../iter_<N>.pt` -> N; 0 for a name without one (a reference
+    checkpoint)."""
+    stem = Path(path).stem
+    digits = stem[len("iter_"):]
+    return int(digits) if stem.startswith("iter_") and digits.isdigit() else 0

@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor any module of the JAX package: every
-module of synthesis_in_style_tpu_torch imports in a fresh interpreter where
-`import jax` fails, and leaves no synthesis_in_style_tpu module loaded."""
+"""The port imports neither JAX nor any module of the JAX package, nor
+OpenCV: every module of synthesis_in_style_tpu_torch imports in a fresh
+interpreter where `import jax` and `import cv2` fail, and leaves no
+synthesis_in_style_tpu module loaded."""
 
 import subprocess
 import sys
@@ -9,6 +10,7 @@ from pathlib import Path
 _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["cv2"] = None  # the card machine has no OpenCV
 import synthesis_in_style_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
