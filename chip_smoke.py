@@ -33,7 +33,15 @@
    with a randomly initialised 256px StyleGAN2 (seeded torch.Generator), a
    synthetic catalog (centres from that generator's activations) and label
    map, batch 16, 32 images; once to warm up, once measured, with every
-   kernel's launch count set to 0 just before and read just after.
+   kernel's launch count set to 0 just before and read just after. Then
+   the host contour route, the JAX package's default: the same CLI without
+   --device-contours (batch 16, 32 images, launch counts from 0: the
+   generator's bias-act and blur kernels must run and the CC kernel must
+   not), its coco_gt.json decoded against the val labels, the same run with
+   --contour-workers 2 (label pixels identical), the host route's stages
+   per batch (synthesis, masks to the host, host half in process and in 2
+   warm workers, PNG writing), and the host and device back halves on one
+   batch of the path's own masks (<= 3 % of pixels apart).
 7. Drives the training CLI (`train_stylegan_2`) on the shipped
    configs/stylegan/stylegan_256px.yaml (bfloat16, frozen noise on layers
    0-5, the shipped regularization) with batch 16, 8 iterations and a
@@ -60,8 +68,12 @@
    with launch counts; segmented_cc must have been launched on this path);
    pages/s of the segmenter at 0.7 / 55, one page under torch.profiler, the
    CC kernel bit for bit against its plain version on that page's closed
-   masks, and one page card vs CPU (TF32 off): class map >= 99.9 % equal,
-   >= 99.9 % of confidences within 1e-3.
+   masks, and one page card vs CPU (TF32 off) on a seeded full-width
+   DocUFCN whose class map holds two classes or more at >= 1 % each: class
+   map >= 99.9 % equal, >= 99.9 % of confidences within 1e-3. Then the
+   analyze CLI at 0.7 / 55 without --use-device-component-filter (the host
+   contour filter; its launch counts from 0), pages/s with that filter, and
+   one page with -vis and every drawing flag (its images must exist).
    Steps 6 to 8 run with PyTorch's defaults (TF32 cuDNN convolutions).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
@@ -85,11 +97,26 @@ and page inference with its snapshot
       -f eval.json -gt <gt> -o <out> -cds --use-device-component-filter
 Their CPU counterparts, against the JAX package at small sizes:
   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q
+
+Rehearsing a phase on the CPU: the phase functions take the module's
+DEVICE, CONFIG_256, CREATION_CONFIG, BATCH, NUM_IMAGES and NUM_CLUSTERS, so a
+script that imports this file can set DEVICE = "cpu", a small generator
+(CONFIG_256 image_size 32, latent_size 32, n_mlp 2, with the creation
+config's layers 4 5 / 6 7), BATCH 4 and NUM_IMAGES 8, write a run directory
+(`make_run_dir`) with a catalog and label map of its own, and call
+`host_route_phase(run, root, fns)` with stand-in counters (objects with a
+`launches` attribute; on the CPU the plain versions run, so it must count
+the two generator kernels itself). Its `if __name__ == "__main__"` guard
+matters: --contour-workers spawns processes that import the main module.
+The segmenter phase rehearses the same way (`segmenter_phase`, with
+SEG_OVERRIDES, PAGE_H / PAGE_W / NUM_PAGES shrunk and bench_ms,
+profile_call, _no_sync and the CC kernel's backend stubbed).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import shutil
@@ -779,17 +806,23 @@ def reference_check(run: Path) -> torch.Tensor:
     return fill_holes(dilate_cross(fine.reshape(-1, 256, 256)))
 
 
-def drive_path(run: Path, save_to: Path) -> dict:
+def drive_path(run: Path, save_to: Path, device_contours: bool = True, workers: int = 0) -> dict:
+    """The dataset CLI on the card: build_dataset timed (warm kernels), then
+    the train/val split and coco_gt.json."""
     from synthesis_in_style_tpu_torch.cli import create_dataset_for_segmentation as cds
 
     argv = [str(run / "checkpoints" / "g_ema.pt"), str(run / "creation_config.json"),
             "-n", str(NUM_IMAGES), "-b", str(BATCH), "--num-clusters", str(NUM_CLUSTERS),
-            "--device-contours", "-s", str(save_to), "-d", "cuda"]
+            "-s", str(save_to), "-d", DEVICE]
+    if device_contours:
+        argv.append("--device-contours")
+    if workers:
+        argv += ["--contour-workers", str(workers)]
     args = cds.build_parser().parse_args(argv)
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     written = cds.build_dataset(args, CREATION_CONFIG)
-    torch.cuda.synchronize()
+    _sync()
     seconds = time.perf_counter() - t0
     args.only_create_train_val_split = True
     cds.main(args)
@@ -831,6 +864,170 @@ def stage_times(run: Path, save_to: Path) -> dict:
     return {**totals, "batch": BATCH}
 
 
+def host_route_phase(run: Path, root: Path, fns: dict) -> dict:
+    """The dataset CLI without --device-contours (the host contour route):
+    once measured with launch counts from 0 (the generator's two kernels
+    must run, the CC kernel must not), once with --contour-workers 2 (the
+    same label pixels), coco_gt.json decoded against the val labels; then
+    the host route's stages timed per batch, and the host and device back
+    halves on one batch of the path's own masks."""
+    for fn in fns.values():
+        fn.launches = 0
+    path = drive_path(run, root / "generated_host", device_contours=False)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    for name in ("fused_bias_act", "fused_blur"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the host dataset route")
+    if launches["segmented_cc"] != 0:
+        raise AssertionError("the host dataset route launched the CC kernel")
+    n = check_outputs(root / "generated_host")
+    annotations = check_coco_gt(root / "generated_host")
+    workers = drive_path(run, root / "generated_host_workers", device_contours=False, workers=2)
+    same_files = compare_label_pngs(root / "generated_host", root / "generated_host_workers")
+    stages, masks = host_stage_times(run, root / "host_stages")
+    divergence = host_vs_device(run, masks)
+    out = {**path, "images_per_s": path["written"] / path["seconds"], "launches": launches,
+           "pngs": n, "coco_annotations": annotations, "workers2_seconds": workers["seconds"],
+           "workers2_images_per_s": workers["written"] / workers["seconds"],
+           "workers2_byte_identical_files": same_files, "stages": stages,
+           "host_vs_device": divergence}
+    log(f"host dataset route (no --device-contours, batch {BATCH}): {path['written']} images "
+        f"in {path['seconds']:.3f} s = {out['images_per_s']:.2f} images/s; with "
+        f"--contour-workers 2 {out['workers2_images_per_s']:.2f} images/s (worker start "
+        f"included); launches {launches}")
+    log(f"host route per batch of {BATCH}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items() if k != "batch"))
+    return out
+
+
+def check_coco_gt(save_to: Path) -> int:
+    """coco_gt.json parses, names the val split's images, and every
+    annotation's RLE decodes inside its class colour in that image's label
+    half: on pixels of that colour, or pixels they enclose (an annotation
+    is a filled external contour, so it covers its region's holes)."""
+    from scipy import ndimage
+
+    from synthesis_in_style_tpu_torch.evaluation.coco_gt import rle_area, rle_decode
+    from synthesis_in_style_tpu_torch.utils.png import read_png
+    from synthesis_in_style_tpu_torch.utils.segmentation_utils import parse_color
+
+    coco = json.loads((save_to / "coco_gt.json").read_text())
+    val = json.loads((save_to / "val.json").read_text())
+    if [im["file_name"] for im in coco["images"]] != [e["file_name"] for e in val]:
+        raise AssertionError("coco_gt.json does not list the val split")
+    colors = {c["id"]: parse_color(c["color"]) for c in coco["categories"]}
+    half = CONFIG_256["image_size"]
+    labels = {im["id"]: read_png(save_to / im["file_name"])[:, half:] for im in coco["images"]}
+    on_colour = total = 0
+    for ann in coco["annotations"]:
+        mask = rle_decode(ann["segmentation"]).astype(bool)
+        if not mask.any() or rle_area(ann["segmentation"]) != ann["area"]:
+            raise AssertionError(f"annotation {ann['id']}: empty or wrong area")
+        cls = (labels[ann["image_id"]] == colors[ann["category_id"]]).all(axis=-1)
+        outside = mask & ~ndimage.binary_fill_holes(cls)
+        if outside.any() or not (mask & cls).any():
+            raise AssertionError(f"annotation {ann['id']}: {int(outside.sum())} pixels outside "
+                                 "its class colour")
+        on_colour += int((mask & cls).sum())
+        total += int(mask.sum())
+    log(f"coco_gt.json: {len(coco['images'])} val images, {len(coco['annotations'])} "
+        f"annotations, every RLE inside its class colour ({on_colour} of {total} pixels on "
+        "it, the rest in the holes they enclose)")
+    return len(coco["annotations"])
+
+
+def compare_label_pngs(a: Path, b: Path) -> int:
+    """The same PNG files in both directories with pixel-identical label
+    halves; returns how many files are also byte-identical."""
+    from synthesis_in_style_tpu_torch.utils.png import read_png
+
+    names = sorted(p.relative_to(a) for p in a.glob("**/*.png"))
+    if names != sorted(p.relative_to(b) for p in b.glob("**/*.png")):
+        raise AssertionError(f"{a} and {b} hold different PNG files")
+    same = 0
+    for name in names:
+        if (a / name).read_bytes() == (b / name).read_bytes():
+            same += 1
+        elif not (read_png(a / name)[:, CONFIG_256["image_size"]:]
+                  == read_png(b / name)[:, CONFIG_256["image_size"]:]).all():
+            raise AssertionError(f"{name}: labels differ between in-process and 2 workers")
+    log(f"--contour-workers 2: {len(names)} pairs, labels identical, {same} files "
+        "byte-identical")
+    return same
+
+
+def host_stage_times(run: Path, save_to: Path):
+    """Per-batch wall time of each stage of the host route (mean of 2 warm
+    batches after one warm-up): synthesis, masks (front half and their copy
+    to the host), host half in process, host half in 2 worker processes
+    (warm), PNG writing. Returns them and the last batch's host masks."""
+    from synthesis_in_style_tpu_torch.cli import create_dataset_for_segmentation as cds
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+    from synthesis_in_style_tpu_torch.segmentation.contour_pool import ContourWorkerPool
+    from synthesis_in_style_tpu_torch.utils.dataset_creation import (
+        build_latent_and_noise_generator,
+        make_generate_fn,
+        make_image,
+        save_generated_images,
+    )
+
+    size = CONFIG_256["image_size"]
+    gen = load_generator(run / "checkpoints" / "g_ema.pt", CONFIG_256, device=DEVICE)
+    generate = make_generate_fn(gen)
+    seg = cds.get_dataset_segmenter(argparse.Namespace(num_clusters=NUM_CLUSTERS),
+                                    CREATION_CONFIG, size, run / "semantic_segmentation", DEVICE)
+    stream = build_latent_and_noise_generator(
+        {"batch_size": BATCH, "latent_size": CONFIG_256["latent_size"]}, seed=2, device=DEVICE)
+    keys = ("synthesis_s", "masks_s", "host_half_s", "host_half_2workers_s", "png_s")
+    totals = dict.fromkeys(keys, 0.0)
+    with ContourWorkerPool(seg, 2) as pool:
+        for step in range(3):
+            t0 = time.perf_counter()
+            acts, images = generate(next(stream))
+            _sync()
+            t1 = time.perf_counter()
+            masks = seg.finish_prepare(seg.begin_prepare(acts))
+            t2 = time.perf_counter()
+            labels, drops = seg.segment_prepared(
+                {k: dict(v) for k, v in masks.items()}, BATCH)
+            t3 = time.perf_counter()
+            pool_labels, pool_drops = pool.segment_prepared(masks, BATCH)
+            t4 = time.perf_counter()
+            if not (pool_labels == labels).all() or sorted(pool_drops) != sorted(drops):
+                raise AssertionError("host half: 2 workers and in process differ")
+            save_generated_images(make_image(images), labels, step * BATCH, save_to, 1000)
+            t5 = time.perf_counter()
+            if step > 0:
+                for key, dt in zip(keys, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+                    totals[key] += dt / 2
+    return {**totals, "batch": BATCH}, masks
+
+
+def host_vs_device(run: Path, masks: dict) -> dict:
+    """The host and the device back half on the same batch of the path's
+    masks: share of pixels whose colour differs (<= 3 %, the envelope the
+    JAX package pins between its two routes) and both drop lists."""
+    from synthesis_in_style_tpu_torch.cli import create_dataset_for_segmentation as cds
+    from synthesis_in_style_tpu_torch.segmentation.device_segmenter import run_device_segment
+
+    seg = cds.get_dataset_segmenter(argparse.Namespace(num_clusters=NUM_CLUSTERS),
+                                    CREATION_CONFIG, CONFIG_256["image_size"],
+                                    run / "semantic_segmentation", DEVICE)
+    host, host_drops = seg.segment_prepared({k: dict(v) for k, v in masks.items()}, BATCH)
+    device, device_drops = run_device_segment(seg, masks, BATCH)
+    share = float((host != device).any(axis=-1).mean())
+    out = {"pixels_differ": share, "host_drops": sorted(host_drops),
+           "device_drops": sorted(device_drops),
+           "host_painted": float((host != 0).any(axis=-1).mean()),
+           "device_painted": float((device != 0).any(axis=-1).mean())}
+    log(f"host vs device back half on one batch of the path's masks: {share:.6f} of pixels "
+        f"differ (painted {out['host_painted']:.4f} / {out['device_painted']:.4f}); drops host "
+        f"{out['host_drops']}, device {out['device_drops']}")
+    if not share <= 0.03:
+        raise AssertionError(f"host and device back halves differ on {share:.4%} of pixels")
+    return out
+
+
 def check_outputs(save_to: Path) -> int:
     from synthesis_in_style_tpu_torch.utils.png import read_png
 
@@ -840,14 +1037,15 @@ def check_outputs(save_to: Path) -> int:
     painted = 0
     for png in pngs:
         pair = read_png(png)
-        if pair.shape != (256, 512, 3):
+        size = CONFIG_256["image_size"]
+        if pair.shape != (size, 2 * size, 3):
             raise AssertionError(f"{png}: shape {pair.shape}")
-        painted += int((pair[:, 256:] != 0).any())
+        painted += int((pair[:, size:] != 0).any())
     split = json.loads((save_to / "train.json").read_text()) + \
         json.loads((save_to / "val.json").read_text())
     if len(split) != len(pngs):
         raise AssertionError("train/val split does not cover the PNGs")
-    log(f"{len(pngs)} PNG pairs (256x512), {painted} with painted labels, "
+    log(f"{len(pngs)} PNG pairs ({size}x{2 * size}), {painted} with painted labels, "
         f"{sum(e['has_printed_text'] for e in split)} has_printed_text")
     return len(pngs)
 
@@ -1239,9 +1437,11 @@ def write_pages(root: Path):
     return pages, gt
 
 
-def run_analyze(pages: Path, gt: Path, snap: Path, out: Path, sweep=SWEEP) -> float:
-    """The page inference CLI on the card (vote assembly, device component
-    filter) over `pages`, every metric; returns its wall seconds."""
+def run_analyze(pages: Path, gt: Path, snap: Path, out: Path, sweep=SWEEP,
+                device_filter: bool = True, extra=()) -> float:
+    """The page inference CLI on the card (vote assembly; the device
+    component filter, or the host contour filter without `device_filter`)
+    over `pages`, every metric; returns its wall seconds."""
     from synthesis_in_style_tpu_torch.cli import analyze_image_segments as cli
 
     eval_config = out.parent / f"{out.name}_eval.json"
@@ -1249,8 +1449,9 @@ def run_analyze(pages: Path, gt: Path, snap: Path, out: Path, sweep=SWEEP) -> fl
                                        "class_to_color_map": str(COLOR_MAP)}))
     argv = [str(pages), "-f", str(eval_config), "-gt", str(gt), "-o", str(out),
             "-cds", "-cio", "-cpr", "-cre", "--min-confidence", *sweep["min_confidence"],
-            "--min-contour-area", *sweep["min_contour_area"], "--use-device-component-filter",
-            "-d", DEVICE]
+            "--min-contour-area", *sweep["min_contour_area"], "-d", DEVICE, *extra]
+    if device_filter:
+        argv.append("--use-device-component-filter")
     _sync()
     t0 = time.perf_counter()
     cli.main(cli.parse_and_check_arguments(argv))
@@ -1258,10 +1459,10 @@ def run_analyze(pages: Path, gt: Path, snap: Path, out: Path, sweep=SWEEP) -> fl
     return time.perf_counter() - t0
 
 
-def check_results(out: Path) -> dict:
+def check_results(out: Path, sweep=SWEEP) -> dict:
     results = json.loads((out / "results.json").read_text())
     runs = results["runs"]
-    want = len(SWEEP["min_confidence"]) * len(SWEEP["min_contour_area"])
+    want = len(sweep["min_confidence"]) * len(sweep["min_contour_area"])
     if len(runs) != want:
         raise AssertionError(f"results.json has {len(runs)} runs, expected {want}")
     scores = {}
@@ -1279,12 +1480,12 @@ def check_results(out: Path) -> dict:
     return scores
 
 
-def _page_segmenter(snap: Path, device: str):
+def _page_segmenter(snap: Path, device: str, device_filter: bool = True):
     from synthesis_in_style_tpu_torch.segmentation.analysis_segmenter import (
         VotingAssemblySegmenter,
     )
 
-    seg = VotingAssemblySegmenter(snap, COLOR_MAP, use_device_component_filter=True,
+    seg = VotingAssemblySegmenter(snap, COLOR_MAP, use_device_component_filter=device_filter,
                                   device=device)
     seg.set_hyperparams({"min_confidence": 0.7, "min_contour_area": 55})
     return seg
@@ -1296,7 +1497,7 @@ def page_path_numbers(snap: Path, pages: Path, detail) -> dict:
     map's copy to the host), one page under torch.profiler, the CC kernel
     held bit for bit against its plain version on one batch's closed masks
     (the shape and content the page path gives it) and timed there, and one
-    page's class map, card against CPU (TF32 off), >= 99.9 % equal."""
+    page card against CPU (`multi_class_page_parity`)."""
     from PIL import Image
 
     from synthesis_in_style_tpu_torch.segmentation import analysis_segmenter as pages_module
@@ -1349,10 +1550,71 @@ def page_path_numbers(snap: Path, pages: Path, detail) -> dict:
     detail.append(cc)
     log(f"segmented_cc {cc}")
 
+    parity = multi_class_page_parity(images[0])
+    return {"pages": len(images), "seconds": seconds, "pages_per_s": len(images) / seconds,
+            "profile": profile, "cc": cc, **parity}
+
+
+PARITY_SEED = SEED + 11
+
+
+def seeded_page_network(page) -> "torch.nn.Module":
+    """A full-width DocUFCN (32/64/128/256, 3 classes) from a seeded
+    torch.Generator whose class map is not one class: random init, running
+    statistics set by one train-mode pass over (up to) 8 patches of the
+    page, and
+    the classifier scaled so its confidences pass 0.7 on the CPU."""
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.models.doc_ufcn import DocUFCN
+
+    net = DocUFCN(num_classes=3, encoder_dropout=0.0, decoder_dropout=0.0)
+    net.init_weights(torch.Generator().manual_seed(PARITY_SEED))
+    arr = np.asarray(page.convert("RGB"), np.float32)
+    corners = [(y, x) for y in range(0, arr.shape[0] - 255, 256)
+               for x in range(0, arr.shape[1] - 255, 256)][:8]
+    patches = torch.stack([torch.from_numpy(arr[y:y + 256, x:x + 256]) for y, x in corners])
+    norms = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in norms:
+        m.momentum = 1.0  # the running statistics become this batch's
+    with torch.no_grad():
+        net.train()(((patches / 255.0 - 0.5) / 0.5).permute(0, 3, 1, 2))
+        for m in norms:
+            m.momentum = 0.1
+        net.classifier.weight.mul_(PARITY_LOGIT_SCALE)
+    return net.eval()
+
+
+# on page 0 this gives class shares of 0.18 / 0.62 / 0.20 on the CPU at 0.7 / 55
+PARITY_LOGIT_SCALE = 8.0
+
+
+def multi_class_page_parity(page) -> dict:
+    """One page (0.7 / 55, device filter) card against CPU with TF32 off,
+    on `seeded_page_network`'s weights: two classes or more must each hold
+    >= 1 % of the CPU's class map, then >= 99.9 % of class ids equal and
+    >= 99.9 % of confidences within 1e-3."""
+    from synthesis_in_style_tpu_torch.segmentation.analysis_segmenter import (
+        VotingAssemblySegmenter,
+    )
+
+    net = seeded_page_network(page)
+
+    def segment(device):
+        seg = VotingAssemblySegmenter(
+            None, COLOR_MAP, network=copy.deepcopy(net), device=device,
+            config={"image_size": 256, "batch_size": SEG_OVERRIDES.get("batch_size", 8)},
+            use_device_component_filter=True)
+        seg.set_hyperparams({"min_confidence": 0.7, "min_contour_area": 55})
+        return seg.segment_image(page)
+
     set_tf32(False)
     try:
-        card = _page_segmenter(snap, DEVICE).segment_image(images[0])
-        cpu = _page_segmenter(snap, "cpu").segment_image(images[0])
+        cpu = segment("cpu")
+        shares = [float((cpu.argmax(-1) == k).mean()) for k in range(cpu.shape[-1])]
+        if sum(share >= 0.01 for share in shares) < 2:
+            raise AssertionError(f"parity network: class shares {shares}, need two >= 1 %")
+        card = segment(DEVICE)
     finally:
         set_tf32(True)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1364,12 +1626,49 @@ def page_path_numbers(snap: Path, pages: Path, detail) -> dict:
     if not (agree >= 0.999 and close >= 0.999):
         raise AssertionError(f"page card vs CPU: {agree:.6f} of class ids and {close:.6f} of "
                              f"confidences (within 1e-3) agree")
-    log(f"page {PAGE_W}x{PAGE_H} card vs CPU (TF32 off): class map {agree:.6f} of pixels "
-        f"agree, confidences within 1e-3 at {close:.6f} (max abs diff "
-        f"{float(abs(card - cpu).max()):.3g}); text share {float((card.argmax(-1) > 0).mean()):.4f}")
+    log(f"page {page.width}x{page.height} card vs CPU (TF32 off, seeded multi-class DocUFCN): "
+        f"class shares {[round(v, 4) for v in shares]}; class map {agree:.6f} of pixels agree, "
+        f"confidences within 1e-3 at {close:.6f} (max abs diff {float(abs(card - cpu).max()):.3g})")
+    return {"card_vs_cpu_agreement": agree, "card_vs_cpu_confidences_within_1e-3": close,
+            "card_vs_cpu_class_shares": shares}
+
+
+def host_filter_numbers(snap: Path, pages: Path, root: Path) -> dict:
+    """Pages/s of segment_image_classes at 0.7 / 55 with the host contour
+    filter (warm), and one page through the analyze CLI with every drawing
+    flag: its images exist and are not empty."""
+    from PIL import Image
+
+    images = [Image.open(p).convert("RGB") for p in sorted(pages.glob("*.png"))]
+    seg = _page_segmenter(snap, DEVICE, device_filter=False)
+    seg.segment_image_classes(images[0])
+    _sync()
+    t0 = time.perf_counter()
+    for image in images:
+        seg.segment_image_classes(image)
+    seconds = time.perf_counter() - t0
+
+    one = root / "one_page"
+    one.mkdir()
+    shutil.copy(sorted(pages.glob("*.png"))[0], one / "page_0.png")
+    out = root / "analyze_vis"
+    vis_seconds = run_analyze(one, pages.parent / "doc_pages_gt", snap, out,
+                              {"min_confidence": ("0.7",), "min_contour_area": ("55",)},
+                              device_filter=False, extra=VIS_FLAGS)
+    files = {p.name: p.stat().st_size for p in out.glob("*.png")}
+    stem = "page_0_min_confidence_0_7_min_contour_area_55_patch_overlap_0__0_0"
+    for suffix in ("segmentation", "overlay", "bboxes"):
+        if not files.get(f"{stem}_{suffix}.png"):
+            raise AssertionError(f"-vis wrote no {stem}_{suffix}.png: {sorted(files)}")
+    log(f"host contour filter: {len(images) / seconds:.3f} pages/s ({PAGE_W}x{PAGE_H}, "
+        f"0.7 / 55, segment_image_classes, warm); -vis with every drawing flag on one page "
+        f"in {vis_seconds:.3f} s wrote {len(files)} images")
     return {"pages": len(images), "seconds": seconds, "pages_per_s": len(images) / seconds,
-            "profile": profile, "cc": cc, "card_vs_cpu_agreement": agree,
-            "card_vs_cpu_confidences_within_1e-3": close}
+            "vis_seconds": vis_seconds, "vis_files": len(files)}
+
+
+VIS_FLAGS = ("-vis", "--extract-bboxes", "--draw-patches", "--draw-bboxes-on-segmentation",
+             "--overlay-segmentation")
 
 
 def segmenter_breakdown(trainer, top: int = 12) -> dict:
@@ -1440,6 +1739,14 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
     page_launches = {name: fn.launches for name, fn in fns.items()}
     page_scores = check_results(root / "analyze")
     page = page_path_numbers(snap, pages, cc_detail)
+    host_sweep = {"min_confidence": ("0.7",), "min_contour_area": ("55",)}
+    for fn in fns.values():
+        fn.launches = 0
+    host_cli_seconds = run_analyze(pages, pages_gt, snap, root / "analyze_host", host_sweep,
+                                   device_filter=False)
+    host_launches = {name: fn.launches for name, fn in fns.items()}
+    check_results(root / "analyze_host", host_sweep)
+    host_page = host_filter_numbers(snap, pages, root)
 
     batch = seg_settings["batch_size"]
     out = {"iterations": iters, "batch": batch, "loop_seconds": trainer.seconds,
@@ -1448,7 +1755,9 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
            "doc_ufcn_card_vs_cpu_rel_err": doc_ufcn_rel, "analyze_cli_seconds": analyze_seconds,
            "analyze_cli_pages": NUM_PAGES * len(SWEEP["min_confidence"])
            * len(SWEEP["min_contour_area"]),
-           "page_launches": page_launches, "page_scores": page_scores, "page": page}
+           "page_launches": page_launches, "page_scores": page_scores, "page": page,
+           "host_filter_cli_seconds": host_cli_seconds, "host_filter_launches": host_launches,
+           "host_filter": host_page}
     log(f"segmenter training path (DocUFCN 32/64/128/256, 256px, batch {batch}, bf16, "
         f"{iters} iterations): {out['images_per_s']:.2f} training images/s "
         f"(train loop {trainer.seconds:.3f} s incl. the validation pass, whole CLI "
@@ -1457,6 +1766,9 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
         f"assembly, min_confidence 0.7, min_contour_area 55): {page['pages_per_s']:.3f} pages/s "
         f"(segment_image_classes, warm); analyze CLI {out['analyze_cli_pages']} page "
         f"passes in {analyze_seconds:.3f} s; launches {page_launches}")
+    log(f"page inference with the host contour filter: {host_page['pages_per_s']:.3f} pages/s "
+        f"against the device filter's {page['pages_per_s']:.3f}; analyze CLI {NUM_PAGES} page "
+        f"passes in {host_cli_seconds:.3f} s; launches {host_launches}")
     for name, prof in (("segmenter training step", breakdown["step_profile"]),
                        ("page", page["profile"])):
         log(f"profiled {name}: wall {prof['wall_s']:.4f} s, device busy "
@@ -1527,6 +1839,7 @@ def main() -> int:
         stages = stage_times(run, root / "stages")
         log(f"per batch of {BATCH}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in stages.items() if k != "batch"))
+        host_route = host_route_phase(run, root, fns)
 
         pages = write_training_pages(root)
         run_training_cli(pages, root / "train_warmup")
@@ -1598,7 +1911,9 @@ def main() -> int:
         k = kernels[name]
         by_path = {"dataset": dataset_launches[name], "training": training_launches[name],
                    "segmenter_training": segmenter["launches"][name],
-                   "page_inference": segmenter["page_launches"][name]}
+                   "page_inference": segmenter["page_launches"][name],
+                   "dataset_host": host_route["launches"][name],
+                   "page_host_filter": segmenter["host_filter_launches"][name]}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
                      "replaces": f"synthesis_in_style_tpu/{tpu}",
@@ -1621,6 +1936,7 @@ def main() -> int:
         cli.detail.write_text(json.dumps(
             {"card": smi, "kernels": rows, "detail": detail,
              "path": {**path, "launches": dataset_launches, "stages": stages},
+             "host_route": host_route,
              "training": training, "segmenter": segmenter}, indent=1))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

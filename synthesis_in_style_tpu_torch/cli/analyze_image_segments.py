@@ -6,20 +6,24 @@ ground-truth loading (`<gt_dir>/<stem>_gt.png` colour masks) and
 `results.json` layout as the JAX CLI (per-image confusion matrices, per-image
 and global dice / IoU / precision / recall, the abort / append / overwrite
 protocol), plus `-d/--device` (default cuda). Pages are segmented with the
-summed-vote assembly; a `min_contour_area` above 0 needs
-`--use-device-component-filter` (the small-region filter then runs the
-union-find CC kernel on the card).
+summed-vote assembly. A `min_contour_area` above 0 runs the JAX package's
+host small-contour filter (polygon areas, on the OpenCV-free tracer of
+utils/contour_ops.py), or with `--use-device-component-filter` the device
+filter (pixel areas; on the card the union-find CC kernel). `-vis` writes
+the JAX CLI's images: `<stem>_<config>_segmentation.png` (with
+`--show-confidence` shading, `--draw-patches` grey patch outlines and
+`--draw-bboxes-on-segmentation` red boxes), `_overlay.png`
+(`--overlay-segmentation`), `_bboxes.png` (`--extract-bboxes`, `-b`, `-c`)
+and the `_bbox_NNNN.png` / `_contour_NNNN.png` crops (`-b`, `-c`).
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md): the host
-OpenCV contour filter, `-vis` and the drawing flags (`--extract-bboxes`,
-`--draw-patches`, `--draw-bboxes-on-segmentation`, `-b`, `-c`,
-`--overlay-segmentation`), `--fused-page-inference`, `--pages-per-batch`,
-`--bucket-quantum`, `--quantize` and `--serving-dtype`.
+Not ported yet (each raises NotImplementedError, see ROADMAP.md):
+`--fused-page-inference`, `--pages-per-batch`, `--bucket-quantum`,
+`--quantize` and `--serving-dtype bfloat16`.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.analyze_image_segments <image_dir> \\
       -f eval_config.json -gt gt_dir -o out -cds -cio --min-confidence 0.5 0.7 \\
-      --min-contour-area 0 55 --use-device-component-filter [-d cuda]
+      --min-contour-area 0 55 [--use-device-component-filter] [-vis ...] [-d cuda]
 """
 
 from __future__ import annotations
@@ -40,19 +44,20 @@ from synthesis_in_style_tpu_torch.evaluation.metrics import (
     calculate_metric,
 )
 from synthesis_in_style_tpu_torch.segmentation.analysis_segmenter import VotingAssemblySegmenter
+from synthesis_in_style_tpu_torch.utils.contour_ops import (
+    bounding_rect,
+    draw_contour_filled,
+    draw_rectangle,
+    find_contours,
+)
+from synthesis_in_style_tpu_torch.utils.png import write_png
 from synthesis_in_style_tpu_torch.utils.segmentation_utils import (
     segmentation_image_to_class_image,
 )
+from synthesis_in_style_tpu_torch.visualization.utils import network_output_to_color_image
 
 # flags (argparse dest, or model-config key) that this port does not serve yet
 NOT_PORTED_FLAGS = {
-    "visualize_segmentation": "-vis/--visualize-segmentation",
-    "extract_bboxes": "--extract-bboxes",
-    "draw_patches": "--draw-patches",
-    "draw_bboxes_on_segmentation": "--draw-bboxes-on-segmentation",
-    "save_bboxes": "-b/--save-bboxes",
-    "save_contours": "-c/--save-contours",
-    "overlay_segmentation": "--overlay-segmentation",
     "fused_page_inference": "--fused-page-inference",
     "pages_per_batch": "--pages-per-batch",
     "bucket_quantum": "--bucket-quantum",
@@ -67,13 +72,6 @@ def check_supported(args: argparse.Namespace, model_config: dict) -> None:
         if value and not (key == "serving_dtype" and value in ("float32", "f32")):
             raise NotImplementedError(
                 f"{flag} is not ported to synthesis_in_style_tpu_torch yet (see ROADMAP.md)")
-    use_filter = args.use_device_component_filter or model_config.get(
-        "use_device_component_filter", False)
-    if any(area > 0 for area in args.min_contour_area) and not use_filter:
-        raise NotImplementedError(
-            "--min-contour-area > 0 needs --use-device-component-filter: the host "
-            "(OpenCV) contour filter is not ported to synthesis_in_style_tpu_torch "
-            "(see ROADMAP.md)")
 
 
 def create_hyperparam_configs(args) -> tuple:
@@ -139,6 +137,55 @@ def resize_image(image, new_dimensions):
     return image.resize((new_dimensions[1], new_dimensions[0]), Image.LANCZOS)
 
 
+def visualize_segmentation(assembled_prediction: np.ndarray, image, segmenter, args,
+                           class_to_color_map: dict, image_prefix: str) -> None:
+    """The colour render (optionally confidence-shaded), with patch outlines
+    and bounding boxes drawn as asked, the overlay, the page with the boxes
+    of every external contour of each non-background class, and their
+    crops, written as the JAX CLI names them."""
+    colored = network_output_to_color_image(
+        assembled_prediction[None], class_to_color_map,
+        show_confidence_in_segmentation=args.show_confidence)[0]
+    out_dir = Path(args.output_dir)
+    base = np.asarray(image.convert("RGB"))
+
+    if args.overlay_segmentation:
+        overlay = (0.5 * base + 0.5 * colored).astype(np.uint8)
+        write_png(out_dir / f"{image_prefix}_overlay.png", overlay)
+
+    render = colored.copy()
+    if args.draw_patches:
+        for bbox in segmenter.calculate_bboxes_for_patches(*image.size):
+            draw_rectangle(render, (bbox.left, bbox.top),
+                           (min(bbox.right, render.shape[1] - 1),
+                            min(bbox.bottom, render.shape[0] - 1)), (128, 128, 128))
+
+    if args.extract_bboxes or args.save_bboxes or args.save_contours:
+        predicted = np.argmax(assembled_prediction, axis=-1).astype(np.uint8)
+        annotated = base.copy()
+        box_id = 0
+        for class_id in range(1, assembled_prediction.shape[-1]):
+            mask = (predicted == class_id).astype(np.uint8)
+            for contour in find_contours(mask, "simple"):
+                x, y, w, h = bounding_rect(contour)
+                draw_rectangle(annotated, (x, y), (x + w, y + h), (255, 0, 0))
+                if args.draw_bboxes_on_segmentation:
+                    draw_rectangle(render, (x, y), (x + w, y + h), (255, 0, 0))
+                if args.save_bboxes:
+                    write_png(out_dir / f"{image_prefix}_bbox_{box_id:04d}.png",
+                              np.ascontiguousarray(base[y: y + h, x: x + w]))
+                if args.save_contours:
+                    crop_mask = np.zeros(mask.shape, np.uint8)
+                    draw_contour_filled(crop_mask, contour, 1)
+                    crop = base * crop_mask[:, :, None]
+                    write_png(out_dir / f"{image_prefix}_contour_{box_id:04d}.png",
+                              np.ascontiguousarray(crop[y: y + h, x: x + w]))
+                box_id += 1
+        write_png(out_dir / f"{image_prefix}_bboxes.png", annotated)
+
+    write_png(out_dir / f"{image_prefix}_segmentation.png", render)
+
+
 def main(args: argparse.Namespace) -> None:
     from PIL import Image, UnidentifiedImageError
 
@@ -201,7 +248,19 @@ def main(args: argparse.Namespace) -> None:
             image = load_one(image_path)
             if image is None:
                 continue
-            predicted = segmenter.segment_image_classes(image)
+            if args.visualize_segmentation:
+                assembled_prediction = segmenter.segment_image(image)
+                predicted = np.argmax(assembled_prediction, axis=-1)
+            else:
+                predicted = segmenter.segment_image_classes(image)
+            if args.visualize_segmentation:
+                prefix = f"{image_path.stem}_{get_string_representation_of_config(hyperparam_config)}"
+                try:
+                    visualize_segmentation(assembled_prediction, image, segmenter, args,
+                                           class_to_color_map, prefix)
+                except Exception as e:  # noqa: BLE001 - the JAX CLI skips such an image too
+                    print(f"The visualization produced an error:\n'{e}'\n"
+                          f"The visualization for {image_path} will be skipped.\n")
             if not evaluate:
                 continue
             try:
@@ -246,8 +305,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-cio", "--calculate-iou", action="store_true", default=False)
     parser.add_argument("-cpr", "--calculate-precision", action="store_true", default=False)
     parser.add_argument("-cre", "--calculate-recall", action="store_true", default=False)
-    parser.add_argument("-vis", "--visualize-segmentation", action="store_true", default=False,
-                        help="not ported yet: raises NotImplementedError")
+    parser.add_argument("-vis", "--visualize-segmentation", action="store_true", default=False)
     parser.add_argument("-f", "--config-file", default="config.json", type=Path)
     parser.add_argument("-op", "--original-config-path", type=Path, default=None)
     parser.add_argument("-gt", "--ground-truth-dir", type=Path, default=None)
@@ -260,18 +318,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--patch-overlap-factor", nargs="+", type=float, default=[0.0])
     parser.add_argument("--min-confidence", nargs="+", type=float, default=[0.7])
     parser.add_argument("--min-contour-area", nargs="+", type=int, default=[55])
-    for flag in ("--extract-bboxes", "--draw-patches", "--draw-bboxes-on-segmentation",
-                 "--overlay-segmentation", "--fused-page-inference", "--quantize"):
+    for flag in ("--extract-bboxes", "--draw-patches", "--draw-bboxes-on-segmentation"):
+        parser.add_argument(flag, action="store_true", default=False)
+    parser.add_argument("-b", "--save-bboxes", action="store_true", default=False)
+    parser.add_argument("-c", "--save-contours", action="store_true", default=False)
+    parser.add_argument("--show-confidence", action="store_true", default=False)
+    parser.add_argument("--overlay-segmentation", action="store_true", default=False)
+    for flag in ("--fused-page-inference", "--quantize"):
         parser.add_argument(flag, action="store_true", default=False,
                             help="not ported yet: raises NotImplementedError")
-    parser.add_argument("-b", "--save-bboxes", action="store_true", default=False,
-                        help="not ported yet: raises NotImplementedError")
-    parser.add_argument("-c", "--save-contours", action="store_true", default=False,
-                        help="not ported yet: raises NotImplementedError")
-    parser.add_argument("--show-confidence", action="store_true", default=False)
     parser.add_argument("--use-device-component-filter", action="store_true", default=False,
                         help="Run the small-component postprocess on the device "
-                        "(union-find connected components). Pixel-area semantics.")
+                        "(union-find connected components) instead of the host "
+                        "contour filter. Pixel-area semantics.")
     parser.add_argument("--pages-per-batch", type=int, default=0,
                         help="not ported yet: raises NotImplementedError")
     parser.add_argument("--bucket-quantum", type=int, default=0,

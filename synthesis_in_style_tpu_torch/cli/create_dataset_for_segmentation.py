@@ -1,21 +1,21 @@
 """Synthesize a labelled segmentation dataset from a trained generator
-(counterpart of synthesis_in_style_tpu/cli/create_dataset_for_segmentation.py,
-device-contour route).
+(counterpart of synthesis_in_style_tpu/cli/create_dataset_for_segmentation.py).
 
-Same flags, same output layout: sharded [image|label] PNG pairs, and a 90/10
+Same flags, same output layout: sharded [image|label] PNG pairs, a 90/10
 train/val split in `train.json` / `val.json` with per-image `has_<class>`
-flags. Synthesis, cluster assignment, masks and the rasterized contour back
-half all run on `--device` (default cuda); only palette indices and drop
-flags reach the host.
+flags, and `coco_gt.json` for the validation split. Synthesis, cluster
+assignment and the class masks run on `--device` (default cuda). The back
+half runs on the host by default (OpenCV-free contour tracing, polygon
+merge and drop rules, optionally in `--contour-workers` processes), or on
+the device with `--device-contours`. The loop is pipelined: batch i+1's
+synthesis and masks are dispatched before batch i's host half runs.
 
-Not ported yet (they raise NotImplementedError, see ROADMAP.md): the host
-contour route (running without --device-contours), --quantize,
---contour-workers > 0, segmenter_type dataset_gan; coco_gt.json is not
-written.
+Not ported yet (they raise NotImplementedError, see ROADMAP.md): --quantize
+and segmenter_type dataset_gan.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.create_dataset_for_segmentation \\
-      <checkpoint> <config.json> -n 1000 -b 16 --num-clusters 17 --device-contours
+      <checkpoint> <config.json> -n 1000 -b 16 --num-clusters 17 [--contour-workers 4]
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 
 from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
 from synthesis_in_style_tpu_torch.evaluation.coco_gt import (
+    COCOGtCreator,
     determine_classes_in_image,
     iter_through_images_in,
 )
@@ -58,12 +59,8 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_supported(args: argparse.Namespace, creation_config: dict) -> None:
     """Raise on every option this port does not implement yet."""
-    if not getattr(args, "device_contours", False):
-        raise _not_ported("the host contour route (run with --device-contours)")
     if getattr(args, "quantize", False) or creation_config.get("quantize", False):
         raise _not_ported("--quantize")
-    if getattr(args, "contour_workers", 0) > 0:
-        raise _not_ported("--contour-workers")
     if creation_config["segmenter_type"] != "black_white_handwritten_printed":
         raise _not_ported(f"segmenter_type {creation_config['segmenter_type']!r}")
 
@@ -98,9 +95,10 @@ def build_dataset(
     creation_config: Dict,
     original_config_path: Optional[Path] = None,
 ) -> int:
-    """Synthesize batches, segment them on the device, drop the images the
-    drop rule flags, and save the rest as PNG pairs until `num_images` are
-    written. Returns the number written."""
+    """Synthesize batches, segment them (host contour half, or the device
+    one with --device-contours), drop the images the drop rules flag, and
+    save the rest as PNG pairs until `num_images` are written. Returns the
+    number written."""
     check_supported(args, creation_config)
     device = torch.device(args.device)
     config = load_config_from_checkpoint(args.checkpoint, original_config_path)
@@ -118,12 +116,25 @@ def build_dataset(
         config, seed=creation_config["seed"], device=device
     )
 
+    use_device_contours = bool(getattr(args, "device_contours", False))
+    contour_pool = None
+    if not use_device_contours and getattr(args, "contour_workers", 0) > 0:
+        from synthesis_in_style_tpu_torch.segmentation.contour_pool import ContourWorkerPool
+
+        contour_pool = ContourWorkerPool(segmenter, args.contour_workers)
+    contour_half = (contour_pool.segment_prepared if contour_pool is not None
+                    else segmenter.segment_prepared)
     generated = 0
-    while generated < args.num_images:
-        activations, images_dev = generate(next(latent_stream))
-        label_images, image_ids_to_drop = segmenter.finish_segment_on_device(
-            segmenter.begin_segment_on_device(activations)
-        )
+    pending = None  # (images, masks, batch_size) of the batch in flight
+
+    def process(pending_batch) -> None:
+        nonlocal generated
+        images_dev, masks, batch_size = pending_batch
+        if use_device_contours:
+            label_images, image_ids_to_drop = segmenter.finish_segment_on_device(masks)
+        else:
+            label_images, image_ids_to_drop = contour_half(
+                segmenter.finish_prepare(masks), batch_size)
         images = make_image(images_dev)
         if images.ndim == 3:  # --gray-fetch: replicate to RGB on the host
             images = np.repeat(images[..., None], 3, axis=-1)
@@ -135,8 +146,44 @@ def build_dataset(
         generated += len(label_images)
         print(f"\rCreating images: {min(generated, args.num_images)}/{args.num_images}",
               end="", flush=True)
-    print()
+
+    try:
+        while generated < args.num_images or pending is not None:
+            # the batch in flight counts toward num_images, so the pipeline
+            # dispatches no extra batch; if drops shrink it, the loop
+            # condition dispatches more
+            in_flight = pending[2] if pending is not None else 0
+            new_pending = None
+            if generated + in_flight < args.num_images:
+                z = next(latent_stream)
+                activations, images = generate(z)
+                images = _start_copy(images)  # ahead of the masks' copy and its event
+                if use_device_contours:
+                    masks = segmenter.begin_segment_on_device(activations)
+                else:
+                    masks = segmenter.begin_prepare(activations)
+                new_pending = (images, masks, int(z.shape[0]))
+            if pending is not None:
+                process(pending)
+            pending = new_pending
+        print()
+    finally:
+        # the spawned workers are reaped also when the loop raises
+        if contour_pool is not None:
+            contour_pool.shutdown()
     return generated
+
+
+def _start_copy(images: torch.Tensor):
+    """Start the copy of a batch of uint8 images to the host without
+    waiting (on the card: into pinned memory, ordered before the next
+    batch's synthesis). `process` reads it only after waiting for the
+    batch's masks, which were queued after it."""
+    if images.device.type != "cuda":
+        return images
+    host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
+    host.copy_(images, non_blocking=True)
+    return host
 
 
 def create_dataset_json_data(
@@ -170,13 +217,17 @@ def main(args: argparse.Namespace) -> None:
 
     split_index = int(len(generated_images) * 0.9)
     color_map = creation_config["class_to_color_map"]
+    validation_images = generated_images[split_index:]
     for name, paths in (("train.json", generated_images[:split_index]),
-                        ("val.json", generated_images[split_index:])):
+                        ("val.json", validation_images)):
         gt, success = create_dataset_json_data(paths, image_save_base_dir, color_map)
         with (image_save_base_dir / (name if success else name + ".part")).open("w") as f:
             json.dump(gt, f)
-    print("coco_gt.json is not written: the polygon COCO export is not ported yet "
-          "(see ROADMAP.md)")
+
+    coco_creator = COCOGtCreator(color_map, image_root=image_save_base_dir)
+    coco_gt = coco_creator.create_coco_gt_from_image_paths(validation_images)
+    with (image_save_base_dir / "coco_gt.json").open("w") as f:
+        json.dump(coco_gt, f)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -199,10 +250,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="fetch one luminance channel from the device and "
                         "replicate it to RGB on the host")
     parser.add_argument("--contour-workers", type=int, default=0,
-                        help="not ported yet: a value > 0 raises NotImplementedError")
+                        help="worker processes for the host contour half (0 = in "
+                        "process); ignored with --device-contours")
     parser.add_argument("--device-contours", action="store_true", default=False,
-                        help="run the rasterized contour back half on the device; "
-                        "required by this port (the host route is not ported yet)")
+                        help="run the rasterized contour back half on the device: only "
+                        "palette indices and drop flags reach the host; its areas are "
+                        "pixel counts where the host route measures polygon areas")
     parser.add_argument(
         "--num-clusters",
         type=lambda s: int(s) if s.lstrip("-").isdigit() else s,

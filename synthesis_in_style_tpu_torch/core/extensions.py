@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -57,18 +58,28 @@ class LogWriter(Extension):
             return
         means["iteration"] = trainer.updater.iteration
         means["epoch"] = trainer.updater.epoch
-        try:
-            # host RSS in the metric stream: a host leak shows up long
-            # before the OOM killer does
-            with open("/proc/self/statm") as f:
-                means["host/rss_gb"] = round(int(f.read().split()[1]) * 4096 / 2**30, 3)
-        except OSError:
-            pass
+        # host RSS in the metric stream: a host leak shows up long before
+        # the OOM killer does
+        rss = host_rss_gb()
+        if rss is not None:
+            means["host/rss_gb"] = rss
         with open(self.log_path, "a") as f:
             f.write(json.dumps(means) + "\n")
 
     def finalize(self, trainer: Trainer):
         self.run(trainer)
+
+
+def host_rss_gb(statm: str = "/proc/self/statm"):
+    """Resident set size of this process in GiB (3 decimals), from the
+    resident page count of `statm` times the host's page size (4, 16 or 64
+    KiB); None where there is no such file."""
+    try:
+        with open(statm) as f:
+            pages = int(f.read().split()[1])
+    except OSError:
+        return None
+    return round(pages * os.sysconf("SC_PAGE_SIZE") / 2**30, 3)
 
 
 class LRReporter(Extension):

@@ -6,8 +6,12 @@ lies inside it. Patches are cut from it in batches of `batch_size` (the last
 batch padded with copies of its last patch, so every forward has one
 shape), normalized to [-1, 1], run through the network, and turned into
 float32 class confidences by a softmax with the confidence threshold. With
-`use_device_component_filter` and a `min_contour_area` above 0, each
-non-background class is then cleaned on the device as the JAX package does:
+a `min_contour_area` above 0, each non-background class is then cleaned of
+small regions. By default that is the JAX package's host filter
+(`models/base_segmenter.remove_too_small_contours`: the batch's confidences
+are copied to the host, regions of polygon area below the threshold are
+zeroed, and they return to the device). With `use_device_component_filter`
+it runs on the device as the JAX package's device filter does:
 foreground where p * 255 >= 1, a 5x5 closing, and the closed components
 smaller than the area (4-connected, in pixels) set to 0
 (`segmentation/device_cc.py`; on a CUDA tensor the labelling is the
@@ -15,9 +19,8 @@ union-find kernel of `csrc/segmented_cc.cu`). The page is assembled on the
 device: per-pixel max over overlapping patches (`AnalysisSegmenter`), or the
 summed confidences normalized to sum 1, NaN as 0 (`VotingAssemblySegmenter`).
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md): the host
-OpenCV contour filter (so `min_contour_area` > 0 needs
-`use_device_component_filter`), the fused whole-page program,
+Not ported yet (each raises NotImplementedError, see ROADMAP.md): the fused
+whole-page program,
 `segment_images` page batching, the mesh, `quantized` and `serving_dtype`.
 """
 
@@ -36,6 +39,7 @@ from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
 from synthesis_in_style_tpu_torch.models.base_segmenter import (
     SegmenterConfig,
     predict_probabilities,
+    remove_too_small_contours,
 )
 from synthesis_in_style_tpu_torch.segmentation.device_cc import (
     binary_closing,
@@ -207,8 +211,8 @@ class AnalysisSegmenter:
     @torch.no_grad()
     def predict_batch(self, images: torch.Tensor) -> torch.Tensor:
         """(B, P, P, C) uint8 patches -> (B, P, P, num_classes) float32
-        confidences after the threshold and, when on, the device component
-        filter."""
+        confidences after the threshold and, with a min_contour_area above
+        0, the small-region filter (host, or device when it is on)."""
         config = self.segmenter_config
         x = (images.float() / 255.0 - 0.5) / 0.5
         x = x.permute(0, 3, 1, 2)
@@ -218,9 +222,10 @@ class AnalysisSegmenter:
         probs = predict_probabilities(logits, config.min_confidence, dim=1)
         if float(config.min_contour_area) > 0:
             if not self.use_device_component_filter:
-                raise _not_ported(
-                    "the host (OpenCV) contour filter; min_contour_area > 0 needs "
-                    "--use-device-component-filter")
+                host = remove_too_small_contours(probs.permute(0, 2, 3, 1).cpu().numpy(),
+                                                 config.min_contour_area,
+                                                 config.background_class_id)
+                return torch.from_numpy(host).to(self.device)
             probs = self._filter_components(probs, config)
         return probs.permute(0, 2, 3, 1)
 

@@ -2,10 +2,11 @@
 cross-entropy step of synthesis_in_style_tpu/updaters/segmentation_updater.py).
 
 * `compute_dtype` ("bfloat16") runs the forward and backward with every
-  convolution's weight and bias cast to that type, differentiably, so the
-  gradients reach the float32 masters (the JAX package's `_apply_train`
-  casts the whole parameter tree). BatchNorm keeps float32 parameters and
-  running statistics; the logits return to float32 before the loss.
+  floating parameter cast to that type, differentiably, so the gradients
+  reach the float32 masters, as the JAX package's `_apply_train` casts the
+  whole parameter tree. BatchNorm's scale and bias are rounded to that type
+  and handed over as float32 (see `cast_params`); its statistics and running
+  buffers stay float32, and the logits return to float32 before the loss.
 * The optimizer is `GANOptimizer` with weight decay: clip the global norm
   to 1, add weight_decay * param, Adam with the schedule at the update
   count.
@@ -27,15 +28,26 @@ from synthesis_in_style_tpu_torch.losses.segmentation import cross_entropy_loss
 from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import GANOptimizer
 
 
-def cast_conv_params(network: nn.Module, dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
-    """{name: tensor} of every convolution parameter, cast (differentiably)
-    to `dtype`; empty without one."""
+def cast_params(network: nn.Module, dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of every floating parameter cast (differentiably) to
+    `dtype`; empty without one. Convolution weights and biases become
+    `dtype`. BatchNorm's weight and bias are rounded to `dtype` and cast
+    back to float32: PyTorch's batch norm refuses a bfloat16 weight beside
+    its float32 running statistics (on the CPU), and with the rounded
+    float32 copy it computes what flax does with a bfloat16 scale and bias
+    (promoted into its float32 normalization)."""
     if dtype is None:
         return {}
-    return {f"{mod_name}.{name}": p.to(dtype)
-            for mod_name, module in network.named_modules()
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d))
-            for name, p in module.named_parameters(recurse=False)}
+    out = {}
+    for mod_name, module in network.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            if not p.is_floating_point():
+                continue
+            cast = p.to(dtype)
+            if isinstance(module, nn.modules.batchnorm._BatchNorm):
+                cast = cast.to(p.dtype)
+            out[f"{mod_name}.{name}" if mod_name else name] = cast
+    return out
 
 
 def forward_train(network: nn.Module, images: torch.Tensor,
@@ -43,7 +55,7 @@ def forward_train(network: nn.Module, images: torch.Tensor,
     """Train-mode logits (float32) of NCHW images, in `compute_dtype`."""
     if compute_dtype is None:
         return network(images)
-    logits = torch.func.functional_call(network, cast_conv_params(network, compute_dtype),
+    logits = torch.func.functional_call(network, cast_params(network, compute_dtype),
                                         (images.to(compute_dtype),))
     return logits.float()
 

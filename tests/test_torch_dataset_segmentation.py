@@ -5,7 +5,8 @@ port against the JAX package (same weights, same z, same catalog).
     the JAX one on >= 99.9 % of pixels (near-ties in the argmin may flip);
 (b) fed the JAX front half's masks, the port's device_segment returns
     bit-identical palette indices and drop flags;
-(c) the port's CLI writes the [image|label] PNG layout and train/val JSONs.
+(c) the port's CLI writes the [image|label] PNG layout, train/val JSONs and
+    coco_gt.json.
 """
 
 import functools
@@ -195,11 +196,12 @@ def test_cli_writes_dataset(tmp_path):
     for entry in train + val:
         assert (image_dir / entry["file_name"]).exists()
         assert set(entry) == {"file_name", "has_printed_text", "has_handwritten_text"}
-    assert not (image_dir / "coco_gt.json").exists()
+    coco = json.loads((image_dir / "coco_gt.json").read_text())
+    assert [image["file_name"] for image in coco["images"]] == [e["file_name"] for e in val]
 
 
-@pytest.mark.parametrize("extra", [[], ["--device-contours", "--quantize"],
-                                   ["--device-contours", "--contour-workers", "2"]])
+@pytest.mark.parametrize("extra", [["--quantize"], ["--device-contours", "--quantize"],
+                                   ["--contour-workers", "2", "--quantize"]])
 def test_cli_unported_options_raise(tmp_path, extra):
     _, argv = _cli_run(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,8 +1,8 @@
 """The port's patch-tiled page inference against the JAX package's on the
 CPU: a 70x90 page, patches of 32 with an overlap factor of 0.25, a
 min_contour_area of 5 under the device component filter (the JAX segmenter
-takes its XLA CC path on the CPU, the port its plain CC), for both the max
-and the voting assembly. Class maps agree on >= 99.9 % of pixels (argmax
+takes its XLA CC path on the CPU, the port its plain CC) and under the host
+contour filter, for both the max and the voting assembly. Class maps agree on >= 99.9 % of pixels (argmax
 near-ties may flip) and confidences within 1e-4 (float32 convolutions
 summed in another order). Also: the closing against the JAX `binary_closing`
 (bit-identical), and the patch tiling and overlap rules."""
@@ -109,10 +109,16 @@ def test_sweep_hyperparams_and_overlap():
 
 
 def test_area_filter_without_device_filter_raises():
-    _, ours = _segmenters("vote", min_confidence=0.0, min_area=5)
-    ours.use_device_component_filter = False
-    with pytest.raises(NotImplementedError, match="use-device-component-filter"):
-        ours.segment_image(_page())
+    """Without the device filter an area above 0 no longer raises: it runs
+    the host contour filter, as the JAX segmenter does without its device
+    filter (polygon areas), and the two pages agree."""
+    ref, ours = _segmenters("vote", min_confidence=0.45, min_area=5, network="pixel_classifier")
+    ref.use_device_component_filter = ours.use_device_component_filter = False
+    page = _page()
+    want = ref.segment_image(page)
+    np.testing.assert_allclose(ours.segment_image(page), want, rtol=0, atol=1e-4)
+    ref.set_hyperparams({"min_contour_area": 0})
+    assert np.abs(ref.segment_image(page) - want).max() > 0.1  # the filter removed regions
 
 
 @pytest.mark.parametrize("kwargs", [dict(fused_page_inference=True), dict(quantized=True),

@@ -5,7 +5,8 @@ continues from it; `analyze_image_segments` loads the snapshot and sweeps
 two pages with the device component filter. Its `results.json` matches the
 JAX CLI's, run on the same weights (converted with `torch_doc_ufcn_to_flax`
 into an orbax snapshot) and pages, within 1e-3 per score (argmax near-ties
-may flip a pixel). Options that are not ported raise."""
+may flip a pixel). Without the device filter an area above 0 runs the host
+contour filter. Options that are not ported raise."""
 
 import json
 from pathlib import Path
@@ -169,7 +170,7 @@ def test_analyze_results_match_the_jax_cli(trained):
 
 @pytest.mark.parametrize("extra", [["--fused-page-inference"], ["--quantize"],
                                    ["--serving-dtype", "bfloat16"], ["--pages-per-batch", "4"],
-                                   ["-vis"], ["--extract-bboxes"]])
+                                   ["--bucket-quantum", "8"], ["-vis", "--quantize"]])
 def test_analyze_not_ported_flags_raise(trained, extra):
     root, _ = trained
     snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
@@ -178,13 +179,27 @@ def test_analyze_not_ported_flags_raise(trained, extra):
         analyze.main(args)
 
 
-def test_area_filter_needs_the_device_filter(trained):
+def test_area_filter_needs_the_device_filter(trained, monkeypatch):
+    """An area above 0 without --use-device-component-filter no longer
+    needs the device filter: it runs the host contour filter (its results
+    against the JAX CLI's: tests/test_torch_page_host_filter.py)."""
+    from synthesis_in_style_tpu_torch.segmentation import analysis_segmenter
+
     root, _ = trained
     snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
     argv = [a for a in _analyze_argv(root, snapshot, "y", "-d", "cpu")
             if a != "--use-device-component-filter"]
-    with pytest.raises(NotImplementedError, match="use-device-component-filter"):
-        analyze.main(analyze.parse_and_check_arguments(argv))
+    calls = []
+    original = analysis_segmenter.remove_too_small_contours
+
+    def counted(probs, area, background):
+        calls.append(area)
+        return original(probs, area, background)
+
+    monkeypatch.setattr(analysis_segmenter, "remove_too_small_contours", counted)
+    analyze.main(analyze.parse_and_check_arguments(argv))
+    assert calls and set(calls) == {5}
+    assert len(json.loads((root / "y" / "results.json").read_text())["runs"]) == 4
 
 
 @pytest.mark.parametrize("extra", [["--resume-ckpt", "latest"], ["--cache-root", "/x"],
