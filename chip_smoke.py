@@ -26,13 +26,30 @@
 4. Runs every step of one training iteration (D, R1, G, path length, EMA)
    of the full-width 256px G and D at batch 2, float32, on the card and on
    the CPU with the same draws, and holds the gradients of every parameter.
-5. Holds the whole dataset path at full 256px width against itself on the
+5. Cluster discovery on a randomly initialised 256px StyleGAN2 (seeded
+   torch.Generator, the shipped stylegan_256px.yaml widths):
+   `create_semantic_segmentation -n 100 -b 10 -c 6 9` (k = 6, 7, 8, all 14
+   layers), once small to warm up, once measured with launch counts from 0
+   (the bias-act forward and the blur tail must run, CC must not), with its
+   generation, per-(layer, k) fit (seconds, steps, inertia), render and
+   write seconds and activation bytes; its artifacts checked (14 unit-norm
+   centres_ arrays with counts_ per catalog, int32 labels, uint8 NCHW
+   arrays, the PNG grid). Then layer 8 (64px, 512 channels) fitted on the
+   card and on the CPU with the same seed and TF32 off (equal steps,
+   >= 99.9 % of labels equal, centres within 1e-3 cosine) and one epoch on
+   the card under torch.cuda.set_sync_debug_mode("error");
+   `select_cluster_config --ks 6 7 8 -n 32 -b 8` and `auto_label_clusters
+   -k 8 -n 32` on the card with launch counts from 0, read as they return
+   (every output parses; then the selection's outputs build the dataset
+   segmenter, whose front half runs on one batch), and one statistics
+   table card vs CPU (within 1e-4 of max|table|).
+6. Holds the whole dataset path at full 256px width against itself on the
    CPU for a batch of 2: generator image and activations, and the device
    back half bit for bit.
-6. Drives the dataset CLI (`create_dataset_for_segmentation --device-contours`)
-   with a randomly initialised 256px StyleGAN2 (seeded torch.Generator), a
-   synthetic catalog (centres from that generator's activations) and label
-   map, batch 16, 32 images; once to warm up, once measured, with every
+7. Drives the dataset CLI (`create_dataset_for_segmentation --device-contours`)
+   with that generator, the discovery phase's k = 8 catalog and a label map
+   (two clusters by size rank as text), batch 16, 32 images; once to warm
+   up, once measured, with every
    kernel's launch count set to 0 just before and read just after. Then
    the host contour route, the JAX package's default: the same CLI without
    --device-contours (batch 16, 32 images, launch counts from 0: the
@@ -42,7 +59,7 @@
    per batch (synthesis, masks to the host, host half in process and in 2
    warm workers, PNG writing), and the host and device back halves on one
    batch of the path's own masks (<= 3 % of pixels apart).
-7. Drives the training CLI (`train_stylegan_2`) on the shipped
+8. Drives the training CLI (`train_stylegan_2`) on the shipped
    configs/stylegan/stylegan_256px.yaml (bfloat16, frozen noise on layers
    0-5, the shipped regularization) with batch 16, 8 iterations and a
    snapshot at 8, over 64 synthetic 256px pages: once to warm up, once
@@ -54,7 +71,7 @@
    The fused bias-act forward is then held against its plain version at
    every (shape, dtype) the measured run launched, with its device time,
    bound and launches x (device time - bound) per shape.
-8. Chains the segmenter path onto step 6's PNG pairs: the segmenter
+9. Chains the segmenter path onto step 7's PNG pairs: the segmenter
    training CLI (`train`) on the shipped
    configs/segmenter/stylegan2_doc_ufcn_segmenter.yaml (DocUFCN 32/64/128/256,
    256px, batch 8, bfloat16) for 16 iterations with one validation pass at
@@ -74,7 +91,8 @@
    analyze CLI at 0.7 / 55 without --use-device-component-filter (the host
    contour filter; its launch counts from 0), pages/s with that filter, and
    one page with -vis and every drawing flag (its images must exist).
-   Steps 6 to 8 run with PyTorch's defaults (TF32 cuDNN convolutions).
+   Steps 5 and 7 to 9 run with PyTorch's defaults (TF32 cuDNN
+   convolutions, float32 matmuls).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
@@ -84,7 +102,14 @@ script exits non-zero; without a CUDA device it exits 2 before any phase.
 On one card, with the long per-phase record written to a file:
   python3 chip_smoke.py --detail chip_smoke_detail.json
 
-The same paths by hand: the training CLI
+The same paths by hand: cluster discovery, selection and labelling
+  python -m synthesis_in_style_tpu_torch.cli.create_semantic_segmentation <ckpt> \
+      -n 100 -b 10 -c 6 9
+  python -m synthesis_in_style_tpu_torch.scripts.select_cluster_config <ckpt> \
+      <run>/semantic_segmentation --ks 6 7 8
+  python -m synthesis_in_style_tpu_torch.scripts.auto_label_clusters <ckpt> \
+      <run>/semantic_segmentation -k 8
+the training CLI
   python -m synthesis_in_style_tpu_torch.cli.train_stylegan_2 \
       configs/stylegan/stylegan_256px.yaml --images train.json -l <dir>
 the dataset CLI on one of its snapshots (`<run>/checkpoints/iter_N.pt`), the
@@ -108,6 +133,13 @@ config's layers 4 5 / 6 7), BATCH 4 and NUM_IMAGES 8, write a run directory
 `launches` attribute; on the CPU the plain versions run, so it must count
 the two generator kernels itself). Its `if __name__ == "__main__"` guard
 matters: --contour-workers spawns processes that import the main module.
+The discovery phase rehearses the same way: `discovery_phase(run, fns)`
+with DEVICE = "cpu", that small CONFIG_256, DISCOVERY_SAMPLES 8,
+DISCOVERY_BATCH 4, a smaller DISCOVERY_WARMUP, FIT_LAYER "4", STATS_LAYER
+"6", SELECT_SAMPLES 8, SELECT_BATCH 4, `_no_sync` and `profile_call` stubbed, stand-in
+counters that the plain bias-act and blur functions increment; then
+`write_catalog(run, gen)` with the creation config's layers 4 5 / 6 7
+(~10 s).
 The segmenter phase rehearses the same way (`segmenter_phase`, with
 SEG_OVERRIDES, PAGE_H / PAGE_W / NUM_PAGES shrunk and bench_ms,
 profile_call, _no_sync and the CC kernel's backend stubbed).
@@ -658,35 +690,25 @@ def make_run_dir(root: Path) -> Path:
 
 
 def write_catalog(run: Path, gen) -> None:
-    """catalogs/<k>.npz: per layer, a few Lloyd steps from centres sampled
-    among real activation pixels of the generator; merged_classes_<k>.json:
-    two clusters (the same size ranks in every layer) printed and handwritten
-    text, the rest background."""
+    """merged_classes_<k>.json for catalogs/<k>.npz of the discovery phase
+    (the port's own fit): two clusters (the same size ranks in every layer)
+    printed and handwritten text, the rest background."""
     import numpy as np
 
-    from synthesis_in_style_tpu_torch.segmentation.kmeans import assign_euclidean
+    from synthesis_in_style_tpu_torch.segmentation.factor_catalog import load_catalogs
 
     sem = run / "semantic_segmentation"
-    (sem / "catalogs").mkdir(parents=True)
+    catalog = load_catalogs(sem / "catalogs" / f"{NUM_CLUSTERS}.npz")
     g = torch.Generator().manual_seed(SEED + 3)
-    z = torch.randn((BATCH, 512), generator=g).cuda()
+    z = torch.randn((BATCH, CONFIG_256["latent_size"]), generator=g).to(DEVICE)
     with torch.no_grad():
         _, acts = gen([z], randomize_noise=False, return_intermediate_activations=True)
     layers = CREATION_CONFIG["keys_for_class_determination"] + \
         CREATION_CONFIG["keys_for_finegrained_segmentation"]
-    arrays, sizes = {}, {}
+    sizes = {}
     for layer in layers:
-        flat = acts[int(layer)].reshape(-1, acts[int(layer)].shape[-1])
-        flat = flat[torch.randperm(len(flat), generator=g)[:65536].cuda()]
-        centers = flat[torch.randperm(len(flat), generator=g)[:NUM_CLUSTERS].cuda()]
-        for _ in range(10):
-            assign = assign_euclidean(flat, centers)
-            for i in range(NUM_CLUSTERS):
-                if (assign == i).any():
-                    centers[i] = flat[assign == i].mean(0)
-        arrays[f"centers_{layer}"] = centers.cpu().numpy()
+        assign = catalog[layer].predict(acts[int(layer)]).reshape(-1)
         sizes[layer] = torch.bincount(assign, minlength=NUM_CLUSTERS).cpu().numpy()
-    np.savez(sem / "catalogs" / f"{NUM_CLUSTERS}.npz", **arrays)
 
     def label_map(printed_rank: int, handwritten_rank: int) -> dict:
         out = {}
@@ -707,7 +729,7 @@ def write_catalog(run: Path, gen) -> None:
     map_file = sem / f"merged_classes_{NUM_CLUSTERS}.json"
     map_file.write_text(json.dumps(label_map(0, 1)))
     seg = get_dataset_segmenter(argparse.Namespace(num_clusters=NUM_CLUSTERS), CREATION_CONFIG,
-                                256, sem, "cuda")
+                                CONFIG_256["image_size"], sem, DEVICE)
     acts = {str(k): v for k, v in acts.items() if str(k) in seg.catalog}
     best = None
     for p_rank in range(5):
@@ -1778,6 +1800,296 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
     return out
 
 
+# ---------------------------------------------------------------------------
+# cluster discovery: create_semantic_segmentation, the k-means fit card vs
+# CPU, select_cluster_config and auto_label_clusters
+
+DISCOVERY_SAMPLES = 100  # the CLI's own -n and -b
+DISCOVERY_BATCH = 10
+DISCOVERY_RANGE = (6, 9)  # -c 6 9: k = 6, 7, 8
+DISCOVERY_WARMUP = ("-n", "10", "-c", "6", "7")
+FIT_LAYER = "8"  # 64px, 512 channels
+SELECT_KS = ("6", "7", "8")
+SELECT_SAMPLES, SELECT_BATCH = 32, 8
+STATS_LAYER, STATS_K = "12", 8  # 256px, 128 channels
+
+
+def run_discovery(run: Path, destination: str, extra=()) -> dict:
+    """The discovery CLI on DEVICE, timed end to end; its summary, with
+    each fit's report under "fits"."""
+    from synthesis_in_style_tpu_torch.cli import create_semantic_segmentation as css
+
+    argv = [str(run / "checkpoints" / "g_ema.pt"), "-n", str(DISCOVERY_SAMPLES),
+            "-b", str(DISCOVERY_BATCH), "-c", *map(str, DISCOVERY_RANGE),
+            "--destination", destination, "-d", DEVICE, *extra]
+    _sync()
+    t0 = time.perf_counter()
+    fits = []
+    report = css.main(css.build_parser().parse_args(argv), fits)
+    _sync()
+    return {**report, "fits": fits, "cli_s": time.perf_counter() - t0}
+
+
+def check_discovery_artifacts(sem: Path, num_layers: int) -> dict:
+    """catalogs/<k>.npz hold `num_layers` unit-norm centres_ arrays with
+    matching counts_; cluster_labels (int32 NHW), cluster_arrays (uint8
+    NCHW) and cluster_images/<k>.png have the JAX CLI's shapes."""
+    import numpy as np
+    from PIL import Image
+
+    size, n = CONFIG_256["image_size"], DISCOVERY_SAMPLES
+    shapes = {}
+    for k in range(*DISCOVERY_RANGE):
+        with np.load(sem / "catalogs" / f"{k}.npz") as cat, \
+                np.load(sem / "cluster_labels" / f"{k}.npz") as labels, \
+                np.load(sem / "cluster_arrays" / f"{k}.npz") as arrays:
+            layers = [name[len("centers_"):] for name in cat.files if name.startswith("centers_")]
+            if len(layers) != num_layers or sorted(cat.files) != sorted(
+                    [f"centers_{l}" for l in layers] + [f"counts_{l}" for l in layers]):
+                raise AssertionError(f"catalogs/{k}.npz holds {cat.files}")
+            if labels.files != layers or arrays.files != layers:
+                raise AssertionError(f"k={k}: layers {labels.files} / {arrays.files} / {layers}")
+            for layer in layers:
+                centers, counts = cat[f"centers_{layer}"], cat[f"counts_{layer}"]
+                norms = np.linalg.norm(centers, axis=1)
+                if centers.shape[0] != k or counts.shape != (k,) or \
+                        not np.allclose(norms, 1.0, atol=1e-4):
+                    raise AssertionError(f"k={k} layer {layer}: centres {centers.shape}, counts "
+                                         f"{counts.shape}, norms {norms}")
+                lab, arr = labels[layer], arrays[layer]
+                h = lab.shape[1]
+                if lab.dtype != np.int32 or lab.shape != (n, h, h) or lab.max() >= k or \
+                        arr.dtype != np.uint8 or arr.shape != (n, 3, h, h):
+                    raise AssertionError(f"k={k} layer {layer}: labels {lab.dtype} {lab.shape}, "
+                                         f"arrays {arr.dtype} {arr.shape}")
+                shapes[layer] = (h, centers.shape[1])
+        with Image.open(sem / "cluster_images" / f"{k}.png") as png:
+            if png.size != (n * size, (num_layers + 1) * size) or png.mode != "RGB":
+                raise AssertionError(f"cluster_images/{k}.png: {png.size} {png.mode}")
+    return shapes
+
+
+def _layer_activations(run: Path, layer: str) -> torch.Tensor:
+    """(DISCOVERY_SAMPLES * h * w, C) activations of one layer on DEVICE,
+    from the run's generator and its own seeded z stream."""
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+    from synthesis_in_style_tpu_torch.utils.dataset_creation import (
+        build_latent_and_noise_generator,
+        make_generate_fn,
+    )
+
+    gen = load_generator(run / "checkpoints" / "g_ema.pt", CONFIG_256, device=DEVICE)
+    generate = make_generate_fn(gen)
+    stream = build_latent_and_noise_generator({**CONFIG_256, "batch_size": DISCOVERY_BATCH},
+                                              seed=SEED + 5, device=DEVICE)
+    acts = [generate(next(stream))[0][int(layer)]
+            for _ in range(DISCOVERY_SAMPLES // DISCOVERY_BATCH)]
+    x = torch.cat(acts)
+    return x.reshape(-1, x.shape[-1])
+
+
+def fit_card_vs_cpu(run: Path, k: int = 8) -> dict:
+    """One layer fitted on the card and on the CPU with the same seed (TF32
+    off): equal n_steps_, >= 99.9 % of nearest-centre labels equal, centres
+    within 1e-3 cosine; then one epoch on the card with every host sync an
+    error."""
+    from synthesis_in_style_tpu_torch.segmentation import kmeans
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _layer_activations(run, FIT_LAYER)
+    x_cpu = x.cpu()
+    fits, seconds = {}, {}
+    for name, data in (("card", x), ("cpu", x_cpu)):
+        _sync()
+        t0 = time.perf_counter()
+        fits[name] = kmeans.MiniBatchSphericalKMeans(k, seed=SEED).fit(data)
+        seconds[name] = time.perf_counter() - t0
+    card, cpu = fits["card"], fits["cpu"]
+    if card.n_steps_ != cpu.n_steps_:
+        raise AssertionError(f"fit steps: card {card.n_steps_}, CPU {cpu.n_steps_}")
+    agree = (card.predict(x).cpu() == cpu.predict(x_cpu)).double().mean().item()
+    cosine = (card.cluster_centers_ * cpu.cluster_centers_).sum(axis=1).min()
+    if agree < 0.999 or cosine < 1.0 - 1e-3:
+        raise AssertionError(f"fit card vs CPU: labels {agree:.6f} equal, min centre cosine "
+                             f"{cosine:.6f}")
+
+    # one epoch, draws moved to the card beforehand, under the sync check
+    bs = min(card.batch_size, x.shape[0])
+    steps = -(-x.shape[0] // bs)
+    g = torch.Generator().manual_seed(SEED)
+    perm = kmeans._permutation(x.shape[0], g)
+    perm = torch.cat([perm, perm[: steps * bs - x.shape[0]]]).to(x.device)
+    new_idx = kmeans._reassignment_draws(steps, bs, k, g).to(x.device)
+    centers = torch.as_tensor(card.cluster_centers_, device=x.device)
+    counts = torch.zeros(k, device=x.device)
+    _sync()
+    t0 = time.perf_counter()
+    _no_sync(lambda: kmeans._fit_epoch(x, perm, centers, counts, new_idx, 0, 0.01, bs=bs,
+                                       reassign_every=10))
+    _sync()
+    epoch_s = time.perf_counter() - t0
+    # the same epoch once more under the profiler: the device's busy share
+    prof = profile_call(lambda: kmeans._fit_epoch(x, perm, centers, counts, new_idx, 0, 0.01,
+                                                  bs=bs, reassign_every=10), top=6)
+    out = {"layer": FIT_LAYER, "k": k, "points": int(x.shape[0]), "dim": int(x.shape[1]),
+           "n_steps": card.n_steps_, "labels_equal": agree, "min_centre_cosine": float(cosine),
+           "card_fit_s": seconds["card"], "cpu_fit_s": seconds["cpu"],
+           "no_sync_epoch_steps": steps, "no_sync_epoch_s": epoch_s,
+           "no_sync_epoch_ms_per_step": epoch_s / steps * 1e3, "epoch_profile": prof}
+    log(f"k-means fit card vs CPU (layer {FIT_LAYER}, {out['points']} x {out['dim']}, k={k}): "
+        f"{card.n_steps_} steps on both, labels {agree:.6f} equal, min centre cosine "
+        f"{cosine:.7f}; card {seconds['card']:.3f} s, CPU {seconds['cpu']:.3f} s; one epoch of "
+        f"{steps} steps with no host sync {epoch_s:.3f} s; profiled: wall {prof['wall_s']:.4f} s, "
+        f"device busy {prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top "
+        "kernels: " + "; ".join(f"{t['name']} x{t['calls']} {t['device_s']:.4f} s"
+                                for t in prof["top_kernels"]))
+    return out
+
+
+def run_selection(run: Path, sem: Path) -> dict:
+    """select_cluster_config and auto_label_clusters on DEVICE (appearance
+    mode); every output exists and parses."""
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.scripts import auto_label_clusters
+    from synthesis_in_style_tpu_torch.scripts import select_cluster_config as scc
+
+    ckpt = str(run / "checkpoints" / "g_ema.pt")
+    _sync()
+    t0 = time.perf_counter()
+    scc.main([ckpt, str(sem), "--ks", *SELECT_KS, "-n", str(SELECT_SAMPLES),
+              "-b", str(SELECT_BATCH), "-d", DEVICE])
+    _sync()
+    select_s = time.perf_counter() - t0
+    auto_label_clusters.main([ckpt, str(sem), "-k", SELECT_KS[-1], "-n", str(SELECT_SAMPLES),
+                              "-b", str(SELECT_BATCH), "-d", DEVICE])
+    _sync()
+    label_s = time.perf_counter() - t0 - select_s
+    creation = json.loads((sem / "creation_config_sel.json").read_text())
+    report = json.loads((sem / "selection_report_sel.json").read_text())
+    merged = json.loads((sem / "merged_classes_sel.json").read_text())
+    auto = json.loads((sem / f"merged_classes_{SELECT_KS[-1]}.json").read_text())
+    with np.load(sem / "catalogs" / "sel.npz") as cat:
+        chosen = sorted(name[len("centers_"):] for name in cat.files
+                        if name.startswith("centers_"))
+    layers = creation["keys_for_class_determination"] + \
+        creation["keys_for_finegrained_segmentation"]
+    if sorted(set(layers)) != chosen or sorted(merged) != chosen or not report["rows"] or \
+            len(auto) != len(report["rows"]) // len(SELECT_KS):
+        raise AssertionError(f"selection outputs disagree: {layers}, {chosen}, {sorted(merged)}")
+    log(f"select_cluster_config --ks {' '.join(SELECT_KS)} -n {SELECT_SAMPLES}: "
+        f"{select_s:.3f} s, cd layers {report['cd_layers']}, fg layers {report['fg_layers']}; "
+        f"auto_label_clusters -k {SELECT_KS[-1]}: {label_s:.3f} s")
+    return {"select_s": select_s, "auto_label_s": label_s, "cd_layers": report["cd_layers"],
+            "fg_layers": report["fg_layers"]}
+
+
+def check_selection_segmenter(run: Path, sem: Path) -> float:
+    """The dataset CLI's segmenter built from the selection's outputs, its
+    front half (nearest-centre labels, class masks) on one batch of 2 from
+    the run's generator; returns the share of pixels it labels as text."""
+    from synthesis_in_style_tpu_torch.cli.create_dataset_for_segmentation import (
+        get_dataset_segmenter,
+    )
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+
+    creation = json.loads((sem / "creation_config_sel.json").read_text())
+    layers = creation["keys_for_class_determination"] + \
+        creation["keys_for_finegrained_segmentation"]
+    seg = get_dataset_segmenter(argparse.Namespace(num_clusters="sel"), creation,
+                                CONFIG_256["image_size"], sem, DEVICE)
+    gen = load_generator(run / "checkpoints" / "g_ema.pt", CONFIG_256, device=DEVICE)
+    z = torch.randn((2, CONFIG_256["latent_size"]),
+                    generator=torch.Generator().manual_seed(SEED + 6)).to(DEVICE)
+    with torch.no_grad():
+        _, acts = gen([z], randomize_noise=False, return_intermediate_activations=True)
+    masks = seg.compute_masks({str(k): v for k, v in acts.items() if str(k) in seg.catalog})
+    if sorted({layer for layer, _ in masks}) != sorted(set(layers)):
+        raise AssertionError(f"masks of the selection's segmenter: {sorted(masks)}")
+    text = [m for (_, name), m in masks.items() if name != "background"]
+    share = float(torch.stack(text).float().mean()) if text else 0.0
+    log(f"the selection's segmenter labels {share:.4f} of one batch of 2 as text")
+    return share
+
+
+def stats_card_vs_cpu(run: Path, sem: Path) -> float:
+    """One (layer, k) statistics table of select_cluster_config on the card
+    and on the CPU from the same activations: within 1e-4 of max|table|."""
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+    from synthesis_in_style_tpu_torch.scripts import select_cluster_config as scc
+    from synthesis_in_style_tpu_torch.segmentation.factor_catalog import load_catalogs
+
+    args = scc.build_parser().parse_args(["ckpt", str(sem), "--ks", str(STATS_K)])
+    centers = load_catalogs(sem / "catalogs" / f"{STATS_K}.npz")[STATS_LAYER].cluster_centers
+    gen = load_generator(run / "checkpoints" / "g_ema.pt", CONFIG_256, device=DEVICE)
+    z = torch.randn((SELECT_BATCH, CONFIG_256["latent_size"]),
+                    generator=torch.Generator().manual_seed(SEED + 7)).to(DEVICE)
+    with torch.no_grad():
+        img, acts = gen([z], randomize_noise=False, return_intermediate_activations=True)
+    lum = torch.clamp((img.float() + 1.0) / 2.0, 0.0, 1.0).mean(dim=-1)
+    acts = {STATS_LAYER: acts[int(STATS_LAYER)]}
+    run_len = scc.run_length(CONFIG_256["image_size"], args.run_len_frac)
+    tables = {}
+    for device in (DEVICE, "cpu"):
+        a = {k: v.to(device) for k, v in acts.items()}
+        feats = scc.layer_features(lum.to(device), a, args, run_len)
+        h = int(a[STATS_LAYER].shape[1])
+        tables[device] = scc.stats_table(a[STATS_LAYER], feats[h], centers, STATS_K).cpu()
+    ref = tables["cpu"]
+    rel = ((tables[DEVICE] - ref).abs().max() / ref.abs().max()).item()
+    if not rel <= 1e-4:
+        raise AssertionError(f"statistics table card vs CPU: relative error {rel}")
+    log(f"statistics table (layer {STATS_LAYER}, k={STATS_K}) card vs CPU: max relative "
+        f"error {rel:.3g}")
+    return rel
+
+
+def discovery_phase(run: Path, fns: dict) -> dict:
+    """Cluster discovery on the run's generator: the CLI once small to warm
+    up, then at -n 100 -b 10 -c 6 9 with launch counts from 0 (the
+    generator's two kernels must run, CC must not); its artifacts; the fit
+    card vs CPU; selection and labelling; one statistics table card vs
+    CPU."""
+    run_discovery(run, "discovery_warmup", DISCOVERY_WARMUP)
+    for fn in fns.values():
+        fn.launches = 0
+    report = run_discovery(run, "semantic_segmentation")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    for name in ("fused_bias_act", "fused_blur"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the discovery path")
+    if launches["segmented_cc"] or launches["fused_bias_act_bwd"]:
+        raise AssertionError(f"discovery launched CC or the backward: {launches}")
+    sem = run / "semantic_segmentation"
+    shapes = check_discovery_artifacts(sem, len(report["fits"]) // len(range(*DISCOVERY_RANGE)))
+    fits = report["fits"]
+    steps = sum(f["n_steps"] for f in fits)
+    fit_sum = sum(f["fit_s"] for f in fits)
+    log(f"discovery CLI (-n {DISCOVERY_SAMPLES} -b {DISCOVERY_BATCH} -c "
+        f"{DISCOVERY_RANGE[0]} {DISCOVERY_RANGE[1]}, {len(shapes)} layers): generation "
+        f"{report['generation_s']:.3f} s, to the device {report['to_device_s']:.3f} s, fits "
+        f"{report['fit_s']:.3f} s ({steps} steps, "
+        f"{fit_sum / steps * 1e3:.3f} ms per step), render and write {report['write_s']:.3f} s, "
+        f"whole CLI {report['cli_s']:.3f} s; activations {report['activation_bytes']} bytes; "
+        f"launches {launches}")
+    for f in fits:
+        log(f"  fit layer {f['layer']:>2} ({shapes[f['layer']][0]}px x {shapes[f['layer']][1]}) "
+            f"k={f['k']}: {f['fit_s']:.4f} s, {f['n_steps']} steps, inertia {f['inertia']:.6f}")
+    card_vs_cpu = fit_card_vs_cpu(run)
+    for fn in fns.values():
+        fn.launches = 0
+    selection = run_selection(run, sem)
+    # read before the segmenter check's own generator forward
+    selection_launches = {name: fn.launches for name, fn in fns.items()}
+    selection["selected_text_share"] = check_selection_segmenter(run, sem)
+    stats_rel = stats_card_vs_cpu(run, sem)
+    return {**{k: v for k, v in report.items() if k != "fits"}, "fits": fits,
+            "fit_steps": steps, "fit_ms_per_step": fit_sum / steps * 1e3,
+            "layer_shapes": shapes, "launches": launches, "fit_card_vs_cpu": card_vs_cpu,
+            "selection": selection, "selection_launches": selection_launches,
+            "stats_card_vs_cpu_rel_err": stats_rel}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", type=Path, default=None,
@@ -1817,6 +2129,12 @@ def main() -> int:
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         run = make_run_dir(root)
+        # cluster discovery with PyTorch's defaults (TF32 cuDNN convolutions,
+        # float32 matmuls); its catalog feeds the dataset phase
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        discovery = discovery_phase(run, fns)
+        set_tf32(False)
         from synthesis_in_style_tpu_torch.models.factory import load_generator
 
         gen = load_generator(run / "checkpoints" / "g_ema.pt", CONFIG_256, device="cuda")
@@ -1866,6 +2184,8 @@ def main() -> int:
         [kernels["fused_bias_act"]["max_abs_err"]]
         + [r["max_abs_err"] for r in detail["fused_bias_act_path_shapes"]])
     for path_name, launches, needed in (
+            ("discovery", discovery["launches"], ("fused_bias_act", "fused_blur")),
+            ("selection", discovery["selection_launches"], ("fused_bias_act", "fused_blur")),
             ("dataset", dataset_launches, ("fused_bias_act", "fused_blur", "segmented_cc")),
             ("training", training_launches, ("fused_bias_act", "fused_bias_act_bwd",
                                              "fused_blur")),
@@ -1909,7 +2229,9 @@ def main() -> int:
     rows = []
     for name, (src, tpu) in sources.items():
         k = kernels[name]
-        by_path = {"dataset": dataset_launches[name], "training": training_launches[name],
+        by_path = {"discovery": discovery["launches"][name],
+                   "selection": discovery["selection_launches"][name],
+                   "dataset": dataset_launches[name], "training": training_launches[name],
                    "segmenter_training": segmenter["launches"][name],
                    "page_inference": segmenter["page_launches"][name],
                    "dataset_host": host_route["launches"][name],
@@ -1936,7 +2258,7 @@ def main() -> int:
         cli.detail.write_text(json.dumps(
             {"card": smi, "kernels": rows, "detail": detail,
              "path": {**path, "launches": dataset_launches, "stages": stages},
-             "host_route": host_route,
+             "host_route": host_route, "discovery": discovery,
              "training": training, "segmenter": segmenter}, indent=1))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

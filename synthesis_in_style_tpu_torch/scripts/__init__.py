@@ -1,1 +1,2 @@
-"""Measurement scripts of the port, run on a GPU."""
+"""Scripts of the port: cluster selection and auto-labelling, and kernel
+measurement on a GPU."""

@@ -50,10 +50,19 @@ HOST_ROUTE_MODULES = (
     "synthesis_in_style_tpu_torch.cli.create_dataset_for_segmentation",
 )
 
+# the cluster-discovery path's modules
+DISCOVERY_MODULES = (
+    "synthesis_in_style_tpu_torch.segmentation.kmeans",
+    "synthesis_in_style_tpu_torch.segmentation.ptutils",
+    "synthesis_in_style_tpu_torch.cli.create_semantic_segmentation",
+    "synthesis_in_style_tpu_torch.scripts.select_cluster_config",
+    "synthesis_in_style_tpu_torch.scripts.auto_label_clusters",
+)
+
 _IMPORT_LINE = re.compile(r"^\s*(?:import|from)\s+(cv2|jax|synthesis_in_style_tpu)(?:\s|\.|$)")
 
 
-@pytest.mark.parametrize("module", HOST_ROUTE_MODULES)
+@pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES)
 def test_host_route_modules_import_no_cv2_and_no_jax(module):
     """No import line of the module names cv2, jax or the JAX package, and it
     imports where both are blocked."""
