@@ -91,8 +91,29 @@
    analyze CLI at 0.7 / 55 without --use-device-component-filter (the host
    contour filter; its launch counts from 0), pages/s with that filter, and
    one page with -vis and every drawing flag (its images must exist).
-   Steps 5 and 7 to 9 run with PyTorch's defaults (TF32 cuDNN
-   convolutions, float32 matmuls).
+10. The capstone recipe's training legs at the recipe's widths, cut in
+   iterations and sample counts only: `make_capstone_fixture --size 256
+   --num-pages 64 --num-eval 8` (host); `train_stylegan_2
+   configs/stylegan/capstone_128px.yaml --val-images` cut to 40 iterations,
+   snapshots and FID every 20 on 64 samples, its first attempt interrupted
+   after the iteration-20 snapshot and a second one with `--resume-ckpt
+   latest` that must start at 20 and end with iter_00000040.pt; then
+   capstone_256px.yaml with `--init-ckpt` of that snapshot, cut to 16
+   iterations and FID every 8 on 64 samples, its copied / fresh counts held
+   against counts from the two snapshots' state dicts and one copied tensor
+   of each network bit-equal to its 128px source; each GAN leg's launch
+   counts from 0, its relative FID and seconds per evaluation, training
+   images/s, and the alarm's fid_history; then `run_capstone_chain` on the
+   256px snapshot (--ks 4 6 -n 16 --num-pairs 64 --epochs 1 --batch-size 8
+   --min-confidence 0.0 0.7 --min-contour-area 0 55
+   --use-device-component-filter, --select-args '--class-mode side
+   --left-threshold 0.5 --num-fg-layers 1'), each
+   leg a subprocess that writes its launch counts at exit, every leg exiting
+   0 with its seconds and best_dice finite in [0, 1]; the fallback FID
+   embedding's features card vs CPU with TF32 off (within 1e-4 relative)
+   and one Frechet distance on each.
+   Steps 5, 7 to 9 and the GAN legs of 10 run with PyTorch's defaults (TF32
+   cuDNN convolutions, float32 matmuls).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
@@ -143,6 +164,12 @@ counters that the plain bias-act and blur functions increment; then
 The segmenter phase rehearses the same way (`segmenter_phase`, with
 SEG_OVERRIDES, PAGE_H / PAGE_W / NUM_PAGES shrunk and bench_ms,
 profile_call, _no_sync and the CC kernel's backend stubbed).
+So does the capstone phase: `capstone_phase(root, fns)` with DEVICE =
+"cpu", CAPSTONE_WIDTHS giving both legs a small generator (latent_size 32,
+n_mlp 2, batch_size 4, image_size 16 / 32), small CAPSTONE_*_CUTS and
+CAPSTONE_INTERRUPT, FIXTURE_ARGS of 6 pages at 64px (one batch an epoch,
+so the alarm runs every iteration), a small CHAIN_ARGS and
+FID_CHECK_IMAGES, and stand-in counters (~1.5 min).
 """
 
 from __future__ import annotations
@@ -151,6 +178,7 @@ import argparse
 import copy
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -2090,6 +2118,416 @@ def discovery_phase(run: Path, fns: dict) -> dict:
             "stats_card_vs_cpu_rel_err": stats_rel}
 
 
+# ---------------------------------------------------------------------------
+# capstone recipe: fixture -> 128px GAN (interrupted, resumed `latest`) ->
+# 256px GAN warm-started from it (`--init-ckpt`) -> the five-leg chain
+
+CAPSTONE_128 = REPO_ROOT / "configs" / "stylegan" / "capstone_128px.yaml"
+CAPSTONE_256 = REPO_ROOT / "configs" / "stylegan" / "capstone_256px.yaml"
+# the recipe's own configs at their widths; only iteration and sample counts cut
+CAPSTONE_128_CUTS = {"max_iter": 40, "snapshot_save_iter": 20, "fid_eval_iter": 20,
+                     "fid_samples": 64}
+CAPSTONE_256_CUTS = {"max_iter": 16, "fid_eval_iter": 8, "fid_samples": 64}
+CAPSTONE_INTERRUPT = 20  # the 128px leg's first attempt dies after this snapshot
+CAPSTONE_WIDTHS = {}  # a CPU rehearsal shrinks widths and sizes here
+FIXTURE_ARGS = ("--size", "256", "--num-pages", "64", "--num-eval", "8")
+# g_ema after a few dozen iterations is still mostly its random init (EMA
+# half-life ~3k steps): no printed-like strokes, so the appearance score
+# labels every text cluster handwritten and the dataset leg finds no
+# printed_text class. By side, split at 0.5, with one fine layer, both the
+# class-determination layers and the fine layer hold both classes, as the
+# dataset segmenter needs (class names only: no gate is read)
+CHAIN_SELECT_ARGS = "--class-mode side --left-threshold 0.5 --num-fg-layers 1"
+CHAIN_ARGS = ("--ks", "4", "6", "--num-discovery-samples", "16", "--num-pairs", "64",
+              "--epochs", "1", "--batch-size", "8", "--min-confidence", "0.0", "0.7",
+              "--min-contour-area", "0", "55", "--use-device-component-filter")
+FID_CHECK_IMAGES = 8
+CHAIN_LEGS = ("cluster_discovery", "select_config", "labelled_synthesis",
+              "segmenter_training", "sweep_eval")
+
+# run as `python <this file> -m <module> <args>`: the module as __main__,
+# and the port's launch counters written to $SIS_LAUNCH_COUNTS_DIR at exit
+COUNTING_LAUNCHER = '''
+import atexit, json, os, runpy, sys
+sys.path.insert(0, os.getcwd())
+from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import (
+    fused_leaky_relu_bwd_cuda, fused_leaky_relu_cuda)
+from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act_cuda
+from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
+fns = {"fused_bias_act": fused_leaky_relu_cuda, "fused_bias_act_bwd": fused_leaky_relu_bwd_cuda,
+       "fused_blur": blur_demod_noise_bias_act_cuda, "segmented_cc": connected_components_cuda}
+assert sys.argv[1] == "-m"
+module = sys.argv[2]
+out = os.path.join(os.environ["SIS_LAUNCH_COUNTS_DIR"], f"{module}.{os.getpid()}.json")
+atexit.register(lambda: open(out, "w").write(json.dumps(
+    {"module": module, **{name: fn.launches for name, fn in fns.items()}})))
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+'''
+
+
+def capstone_config(root: Path, source: Path, cuts: dict, name: str) -> Path:
+    """A shipped capstone config with the phase's cuts, as JSON."""
+    import yaml
+
+    config = {**yaml.safe_load(source.read_text()), **cuts, **CAPSTONE_WIDTHS.get(name, {})}
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+class _TrainerRecorder:
+    """While active: every Trainer that trains (with the iteration it starts
+    at), every evaluation (trainer.last_evaluation after each Evaluator run)
+    and what each warm start returned; optionally a KeyboardInterrupt right
+    after the snapshot at `interrupt_at`."""
+
+    def __init__(self, interrupt_at=None):
+        self.interrupt_at = interrupt_at
+        self.trainers, self.evaluations, self.warm_starts = [], [], []
+
+    def __enter__(self):
+        from synthesis_in_style_tpu_torch.cli import train_stylegan_2 as cli
+        from synthesis_in_style_tpu_torch.core import extensions
+        from synthesis_in_style_tpu_torch.core.trainer import Trainer
+
+        self._originals = (Trainer.train, extensions.Evaluator.run, extensions.Snapshotter.run,
+                           cli.warm_start)
+        train, evaluate, snapshot, warm_start = self._originals
+        rec = self
+
+        def train_recorded(trainer):
+            entry = [trainer, trainer.updater.iteration, None]
+            rec.trainers.append(entry)
+            t0 = time.perf_counter()
+            try:
+                return train(trainer)
+            finally:  # an interrupted run's loop seconds too
+                entry[2] = time.perf_counter() - t0
+
+        def evaluate_recorded(ext, trainer):
+            evaluate(ext, trainer)
+            rec.evaluations.append(dict(trainer.last_evaluation))
+
+        def snapshot_then_die(ext, trainer):
+            snapshot(ext, trainer)
+            if trainer.updater.iteration == rec.interrupt_at:
+                raise KeyboardInterrupt(f"interrupted after the iteration-{rec.interrupt_at} "
+                                        "snapshot")
+
+        def warm_start_recorded(state, init_ckpt, image_size):
+            counts = warm_start(state, init_ckpt, image_size)
+            rec.warm_starts.append({
+                "counts": counts,
+                **{key: {k: v.detach().cpu().clone() for k, v in
+                         getattr(state, attr).state_dict().items()}
+                   for key, attr in (("generator", "generator"), ("g_ema", "g_ema"),
+                                     ("discriminator", "discriminator"))}})
+            return counts
+
+        Trainer.train = train_recorded
+        extensions.Evaluator.run = evaluate_recorded
+        extensions.Snapshotter.run = snapshot_then_die
+        cli.warm_start = warm_start_recorded
+        return self
+
+    def __exit__(self, *exc):
+        from synthesis_in_style_tpu_torch.cli import train_stylegan_2 as cli
+        from synthesis_in_style_tpu_torch.core import extensions
+        from synthesis_in_style_tpu_torch.core.trainer import Trainer
+
+        (Trainer.train, extensions.Evaluator.run, extensions.Snapshotter.run,
+         cli.warm_start) = self._originals
+        return False
+
+
+def run_gan_leg(config: Path, fixture: Path, log_root: Path, *extra) -> None:
+    """The GAN training CLI on the fixture with FID on its val.json."""
+    from synthesis_in_style_tpu_torch.cli import train_stylegan_2 as cli
+
+    argv = [str(config), "--images", str(fixture / "train.json"),
+            "--val-images", str(fixture / "val.json"), "-l", str(log_root), "-ln", "gan",
+            "-d", DEVICE, *extra]
+    cli.main(cli.resolve_log_dir(cli.build_parser().parse_args(argv)))
+
+
+def _alarm(trainer):
+    from synthesis_in_style_tpu_torch.core.extensions import DivergenceAlarm
+
+    return next(e for e in trainer.extensions if isinstance(e, DivergenceAlarm))
+
+
+def _leg_numbers(rec: _TrainerRecorder, batch: int) -> dict:
+    """Per attempt: iterations, loop seconds, FID evaluations (iteration,
+    relative FID, seconds), training images/s outside the evaluations, and
+    the alarm's fid_history."""
+    attempts = []
+    for trainer, start, seconds in rec.trainers:
+        evals = [e for e in rec.evaluations
+                 if start < e["iteration"] <= trainer.updater.iteration]
+        fid_s = sum(e["fid_seconds"] for e in evals)
+        iters = trainer.updater.iteration - start
+        attempts.append({
+            "start_iteration": start, "end_iteration": trainer.updater.iteration,
+            "loop_seconds": seconds,
+            "fid": [[e["iteration"], e["fid_score"], e["fid_seconds"]] for e in evals],
+            "fid_seconds": fid_s,
+            "images_per_s": iters * batch / (seconds - fid_s),
+            "alarm_fid_history": _alarm(trainer).fid_history})
+    return {"attempts": attempts}
+
+
+def _check_fid_history(attempt: dict, what: str) -> None:
+    """Finite FIDs, and the alarm saw every evaluated iteration once (an
+    evaluation repeated at the end of training joins once, with one of its
+    values)."""
+    evals = attempt["fid"]
+    if not evals or not all(math.isfinite(f) and f >= 0 for _, f, _ in evals):
+        raise AssertionError(f"{what}: FID evaluations {evals}")
+    history = attempt["alarm_fid_history"]
+    if [it for it, _ in history] != sorted({it for it, _, _ in evals}) or not all(
+            any(it == e_it and f == e_f for e_it, e_f, _ in evals) for it, f in history):
+        raise AssertionError(f"{what}: the alarm's fid_history {history} is not the "
+                             f"evaluations {evals}")
+
+
+def _expected_warm_counts(src: dict, dst: dict, shift: int, discriminator: bool) -> tuple:
+    """(copied, fresh) computed from the two state dicts alone: a target
+    tensor is copied where the source has the same name (for the
+    discriminator, its block index less the shift; its input layer never)
+    and the same shape."""
+    copied = 0
+    for name, value in dst.items():
+        src_name = name
+        if discriminator and name.startswith("convs."):
+            parts = name.split(".")
+            index = int(parts[1]) - shift
+            src_name = ".".join(["convs", str(index), *parts[2:]]) if index >= 1 else None
+        if src_name in src and src[src_name].shape == value.shape:
+            copied += 1
+    return copied, len(dst) - copied
+
+
+def check_warm_start(rec: _TrainerRecorder, source: Path, target_snapshot: Path) -> dict:
+    """The warm start's counts against counts from the two snapshots' state
+    dicts, and one copied tensor of each network bit-equal to its source."""
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+    from synthesis_in_style_tpu_torch.utils.checkpoint import load_gan_snapshot
+
+    (warm,) = rec.warm_starts
+    src, dst = load_gan_snapshot(source), load_gan_snapshot(target_snapshot)
+    shift = int(math.log2(load_config_from_checkpoint(target_snapshot)["image_size"])) - \
+        int(math.log2(load_config_from_checkpoint(source)["image_size"]))
+    probes = {"generator": ("conv1.conv.weight", "conv1.conv.weight"),
+              "g_ema": ("convs.0.conv.weight", "convs.0.conv.weight"),
+              "discriminator": ("convs.1.conv1.0.weight", f"convs.{1 + shift}.conv1.0.weight")}
+    out = {}
+    for key in ("generator", "discriminator", "g_ema"):
+        expected = _expected_warm_counts(src[key], dst[key], shift, key == "discriminator")
+        if tuple(warm["counts"][key]) != expected:
+            raise AssertionError(f"warm start {key}: {warm['counts'][key]} copied / fresh, "
+                                 f"the state dicts give {expected}")
+        src_name, dst_name = probes[key]
+        if not torch.equal(warm[key][dst_name], src[key][src_name]):
+            raise AssertionError(f"warm start {key}: {dst_name} is not the source's {src_name}")
+        out[key] = {"copied": expected[0], "fresh": expected[1],
+                    "bit_equal": f"{dst_name} <- {src_name}"}
+    if torch.equal(src["g_ema"]["conv1.conv.weight"], src["generator"]["conv1.conv.weight"]):
+        raise AssertionError("the source's g_ema equals its generator: the probe proves nothing")
+    if not torch.equal(warm["g_ema"]["conv1.conv.weight"], src["g_ema"]["conv1.conv.weight"]):
+        raise AssertionError("warm start g_ema took another network's conv1")
+    return out
+
+
+def run_chain(root: Path, snapshot: Path, fixture: Path) -> dict:
+    """`run_capstone_chain` on the 256px snapshot, each leg in a subprocess
+    whose launch counts are written at its exit; returns the report and the
+    counts by leg."""
+    from synthesis_in_style_tpu_torch.scripts import run_capstone_chain
+
+    launcher = root / "count_launches.py"
+    launcher.write_text(COUNTING_LAUNCHER)
+    counts_dir = root / "launch_counts"
+    counts_dir.mkdir()
+    work = root / "chain"
+    env_before = dict(os.environ)
+    os.environ["SIS_LAUNCH_COUNTS_DIR"] = str(counts_dir)
+    try:
+        rc = run_capstone_chain.main(
+            [str(snapshot), str(work), "--fixture", str(fixture), "-d", DEVICE,
+             "--select-args", CHAIN_SELECT_ARGS, *CHAIN_ARGS],
+            interpreter=[sys.executable, str(launcher)])
+    finally:
+        os.environ.clear()
+        os.environ.update(env_before)
+    if rc != 0:
+        raise AssertionError(f"run_capstone_chain returned {rc}")
+    report = json.loads((work / "chain_report.json").read_text())
+    modules = {"cluster_discovery": "create_semantic_segmentation",
+               "select_config": "select_cluster_config",
+               "labelled_synthesis": "create_dataset_for_segmentation",
+               "segmenter_training": "cli.train", "sweep_eval": "analyze_image_segments"}
+    by_leg = {}
+    for path in counts_dir.glob("*.json"):
+        record = json.loads(path.read_text())
+        leg = next(name for name, m in modules.items() if record["module"].endswith(m))
+        by_leg[leg] = {k: v for k, v in record.items() if k != "module"}
+    return {"report": report, "launches_by_leg": by_leg}
+
+
+def check_chain(chain: dict) -> None:
+    report = chain["report"]
+    if list(report["legs"]) != list(CHAIN_LEGS):
+        raise AssertionError(f"chain legs {list(report['legs'])}")
+    for name, leg in report["legs"].items():
+        if leg["returncode"] != 0 or not leg["seconds"] > 0:
+            raise AssertionError(f"chain leg {name}: {leg}")
+    for name, score in report["best_dice"].items():
+        if not (math.isfinite(score) and 0.0 <= score <= 1.0):
+            raise AssertionError(f"best_dice {name} = {score}")
+    if set(chain["launches_by_leg"]) != set(CHAIN_LEGS):
+        raise AssertionError(f"launch counts from legs {sorted(chain['launches_by_leg'])}")
+
+
+def fid_card_vs_cpu(fixture: Path, snapshot: Path) -> dict:
+    """The fallback embedding (seeded random VGG16, pooled relu5_3) on the
+    card and on the CPU, TF32 off, on FID_CHECK_IMAGES fixture pages and as
+    many g_ema samples of the 256px snapshot: features within 1e-4 of
+    max |cpu|; one Frechet distance of each device's features."""
+    import warnings
+
+    from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import GANImageDataset
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+    from synthesis_in_style_tpu_torch.evaluation import fid
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+
+    config = load_config_from_checkpoint(snapshot)
+    data = GANImageDataset(fixture / "train.json", root=fixture,
+                           image_size=config["image_size"])
+    real = torch.stack([data[i]["images"] for i in range(FID_CHECK_IMAGES)])
+    gen = load_generator(snapshot, config, device="cpu")
+    z = torch.randn((FID_CHECK_IMAGES, int(config["latent_size"])),
+                    generator=torch.Generator().manual_seed(42))
+    with torch.no_grad():
+        fake, _ = gen([z], randomize_noise=False)
+    set_tf32(False)
+    feats, distance = {}, {}
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for device in (DEVICE, "cpu"):
+                fn = fid.default_feature_fn(device=device)
+                feats[device] = [fn(x.to(device)).float().cpu() for x in (real, fake)]
+                r, f = (fid.get_statistics(t.double().numpy()) for t in feats[device])
+                distance[device] = fid.calculate_frechet_distance(r.mu, r.sigma, f.mu, f.sigma)
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(feats[DEVICE], feats["cpu"]))
+    if not rel <= 1e-4:
+        raise AssertionError(f"FID features card vs CPU: relative error {rel} > 1e-4")
+    return {"features_rel_err": rel, "fid_card": distance[DEVICE], "fid_cpu": distance["cpu"],
+            "fid_rel_diff": abs(distance[DEVICE] - distance["cpu"]) / abs(distance["cpu"])}
+
+
+def capstone_phase(root: Path, fns: dict) -> dict:
+    """The capstone recipe's legs at the recipe's widths, cut in iterations
+    and sample counts (CAPSTONE_*_CUTS): the fixture; the 128px GAN with
+    FID, interrupted after its iteration-20 snapshot and resumed `latest`;
+    the 256px GAN warm-started from its final snapshot; the five-leg chain
+    on the 256px snapshot; the FID embedding card vs CPU. Launch counts are
+    set to 0 before each GAN leg and read after it; the chain's legs count
+    in their own processes."""
+    fixture = root / "fixture"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m",
+                    "synthesis_in_style_tpu_torch.scripts.make_capstone_fixture", str(fixture),
+                    *FIXTURE_ARGS], check=True, timeout=600)
+    fixture_s = time.perf_counter() - t0
+    log(f"capstone fixture ({' '.join(FIXTURE_ARGS)}; cut from the recipe's 768 pages and 64 "
+        f"eval pairs): {fixture_s:.3f} s on the host")
+
+    # 128px: attempt 1 dies after its iteration-20 snapshot, attempt 2 resumes
+    config_128 = capstone_config(root, CAPSTONE_128, CAPSTONE_128_CUTS, "capstone_128")
+    batch = int(json.loads(config_128.read_text())["batch_size"])
+    for fn in fns.values():
+        fn.launches = 0
+    with _TrainerRecorder(interrupt_at=CAPSTONE_INTERRUPT) as rec_128:
+        try:
+            run_gan_leg(config_128, fixture, root / "gan128")
+            raise AssertionError("the 128px leg's first attempt was not interrupted")
+        except KeyboardInterrupt:
+            pass
+        run_gan_leg(config_128, fixture, root / "gan128", "--resume-ckpt", "latest")
+    launches_128 = {name: fn.launches for name, fn in fns.items()}
+    leg_128 = _leg_numbers(rec_128, batch)
+    first, second = leg_128["attempts"]
+    if (first["end_iteration"], second["start_iteration"], second["end_iteration"]) != \
+            (CAPSTONE_INTERRUPT, CAPSTONE_INTERRUPT, CAPSTONE_128_CUTS["max_iter"]):
+        raise AssertionError(f"128px attempts {first} / {second}")
+    attempts = sorted((root / "gan128" / "gan").iterdir())
+    final_128 = attempts[-1] / "checkpoints" / f"iter_{CAPSTONE_128_CUTS['max_iter']:08d}.pt"
+    if len(attempts) != 2 or not final_128.exists():
+        raise AssertionError(f"128px attempts {attempts}, no {final_128}")
+    for i, attempt in enumerate(leg_128["attempts"]):
+        _check_fid_history(attempt, f"128px attempt {i + 1}")
+    log(f"capstone 128px leg ({CAPSTONE_128.name}, shipped widths, cut to "
+        f"{CAPSTONE_128_CUTS}): attempt 1 stopped after iteration {first['end_iteration']}, "
+        f"attempt 2 resumed `latest` at {second['start_iteration']} and wrote "
+        f"{final_128.name}; launches {launches_128}")
+    for i, attempt in enumerate(leg_128["attempts"]):
+        log(f"  attempt {i + 1}: {attempt['images_per_s']:.2f} training images/s outside FID "
+            f"(loop {attempt['loop_seconds']:.3f} s, FID {attempt['fid_seconds']:.3f} s); "
+            "relative FID (iteration, value, seconds): "
+            + ", ".join(f"({it}, {f:.4f}, {s:.3f})" for it, f, s in attempt["fid"])
+            + f"; alarm fid_history {attempt['alarm_fid_history']}")
+
+    # 256px, warm-started from the 128px leg's final snapshot
+    config_256 = capstone_config(root, CAPSTONE_256, CAPSTONE_256_CUTS, "capstone_256")
+    for fn in fns.values():
+        fn.launches = 0
+    with _TrainerRecorder() as rec_256:
+        t0 = time.perf_counter()
+        run_gan_leg(config_256, fixture, root / "gan256", "--init-ckpt", str(final_128))
+        leg_256_s = time.perf_counter() - t0
+    launches_256 = {name: fn.launches for name, fn in fns.items()}
+    leg_256 = _leg_numbers(rec_256, batch)
+    (attempt_256,) = leg_256["attempts"]
+    _check_fid_history(attempt_256, "256px leg")
+    (run_256,) = (root / "gan256" / "gan").iterdir()
+    final_256 = run_256 / "checkpoints" / f"iter_{CAPSTONE_256_CUTS['max_iter']:08d}.pt"
+    warm = check_warm_start(rec_256, final_128, final_256)
+    log(f"capstone 256px leg ({CAPSTONE_256.name}, shipped widths, cut to {CAPSTONE_256_CUTS}) "
+        f"warm-started from {final_128.name}: " + "; ".join(
+            f"{k} {v['copied']} copied / {v['fresh']} fresh ({v['bit_equal']} bit-equal)"
+            for k, v in warm.items())
+        + f"; {attempt_256['images_per_s']:.2f} training images/s outside FID (loop "
+        f"{attempt_256['loop_seconds']:.3f} s, whole CLI {leg_256_s:.3f} s, FID "
+        f"{attempt_256['fid_seconds']:.3f} s); relative FID (iteration, value, seconds): "
+        + ", ".join(f"({it}, {f:.4f}, {s:.3f})" for it, f, s in attempt_256["fid"])
+        + f"; alarm fid_history {attempt_256['alarm_fid_history']}; launches {launches_256}")
+
+    chain = run_chain(root, final_256, fixture)
+    check_chain(chain)
+    report = chain["report"]
+    log("capstone chain (" + " ".join(CHAIN_ARGS) + f", --select-args '{CHAIN_SELECT_ARGS}'): "
+        + ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in report["legs"].items())
+        + f"; total {report['total_seconds']:.3f} s; best dice {report['best_dice']}")
+    log("  launches by leg: " + "; ".join(f"{k} {v}" for k, v in chain["launches_by_leg"].items()))
+    fid_check = fid_card_vs_cpu(fixture, final_256)
+    log(f"FID embedding card vs CPU (TF32 off, {FID_CHECK_IMAGES} pages and {FID_CHECK_IMAGES} "
+        f"g_ema samples at 256px): features max relative error "
+        f"{fid_check['features_rel_err']:.3g}; Frechet distance card {fid_check['fid_card']:.6f}, "
+        f"CPU {fid_check['fid_cpu']:.6f}")
+    chain_launches = {name: sum(leg[name] for leg in chain["launches_by_leg"].values())
+                      for name in fns}
+    return {"fixture_s": fixture_s, "gan_128": leg_128, "launches_128": launches_128,
+            "gan_256": leg_256, "launches_256": launches_256, "gan_256_cli_s": leg_256_s,
+            "warm_start": warm, "chain": chain, "chain_launches": chain_launches,
+            "fid_card_vs_cpu": fid_check}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", type=Path, default=None,
@@ -2176,6 +2614,9 @@ def main() -> int:
         # the segmenter path on the dataset path's PNG pairs
         segmenter = segmenter_phase(root, root / "generated_images", fns,
                                     detail["segmented_cc"])
+        # the capstone recipe's legs: fixture, 128px GAN (resumed), 256px
+        # GAN (warm-started), the five-leg chain
+        capstone = capstone_phase(root, fns)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     path_shapes = check_fused_bias_act_path_shapes(detail["fused_bias_act_path_shapes"],
@@ -2189,7 +2630,13 @@ def main() -> int:
             ("dataset", dataset_launches, ("fused_bias_act", "fused_blur", "segmented_cc")),
             ("training", training_launches, ("fused_bias_act", "fused_bias_act_bwd",
                                              "fused_blur")),
-            ("page_inference", segmenter["page_launches"], ("segmented_cc",))):
+            ("page_inference", segmenter["page_launches"], ("segmented_cc",)),
+            ("capstone_gan_128", capstone["launches_128"], ("fused_bias_act",
+                                                             "fused_bias_act_bwd", "fused_blur")),
+            ("capstone_gan_256", capstone["launches_256"], ("fused_bias_act",
+                                                             "fused_bias_act_bwd", "fused_blur")),
+            ("capstone_chain", capstone["chain_launches"], ("fused_bias_act", "fused_blur",
+                                                            "segmented_cc"))):
         for name in needed:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path_name} path")
@@ -2235,7 +2682,10 @@ def main() -> int:
                    "segmenter_training": segmenter["launches"][name],
                    "page_inference": segmenter["page_launches"][name],
                    "dataset_host": host_route["launches"][name],
-                   "page_host_filter": segmenter["host_filter_launches"][name]}
+                   "page_host_filter": segmenter["host_filter_launches"][name],
+                   "capstone_gan_128": capstone["launches_128"][name],
+                   "capstone_gan_256": capstone["launches_256"][name],
+                   "capstone_chain": capstone["chain_launches"][name]}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
                      "replaces": f"synthesis_in_style_tpu/{tpu}",
@@ -2259,7 +2709,8 @@ def main() -> int:
             {"card": smi, "kernels": rows, "detail": detail,
              "path": {**path, "launches": dataset_launches, "stages": stages},
              "host_route": host_route, "discovery": discovery,
-             "training": training, "segmenter": segmenter}, indent=1))
+             "training": training, "segmenter": segmenter, "capstone": capstone},
+            indent=1, default=str))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,12 +9,15 @@ cuda): the YAML config merged under the flags, the log directory
 learning-rate reports, and dice / IoU on `--val-images` every epoch and at
 the end. `--fine-tune` loads a snapshot's (or a reference `.pt`'s) network;
 `--resume-ckpt <snapshot>` resumes network, optimizer, iteration and data
-position. Augmentation runs in the loader workers without OpenCV.
+position, and `--resume-ckpt latest` does so from the newest snapshot across
+this run's timestamped attempts (a fresh start when there is none).
+`-c/--cache-root` copies the images to a local cache on first read;
+`--profile-dir` writes a torch.profiler Chrome trace of the run.
+Augmentation runs in the loader workers without OpenCV.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md):
-`--resume-ckpt latest`, `--cache-root`, wandb logging, `--profile-dir`,
-networks other than DocUFCN, `dataset: dataset_gan`, and more than one
-process.
+Not ported yet (each raises NotImplementedError, see ROADMAP.md): wandb
+logging, networks other than DocUFCN, `dataset: dataset_gan`, and more than
+one process.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.train <config.yaml> \\
@@ -30,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import resolve_log_dir
+from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import find_latest_resume, resolve_log_dir
 from synthesis_in_style_tpu_torch.core.config import (
     load_config_file,
     merge_config_and_args,
@@ -38,10 +41,12 @@ from synthesis_in_style_tpu_torch.core.config import (
 )
 from synthesis_in_style_tpu_torch.core.extensions import LogWriter, LRReporter
 from synthesis_in_style_tpu_torch.core.trainer import Trainer
+from synthesis_in_style_tpu_torch.data.json_dataset import CachingLoader, resilient_loader
 from synthesis_in_style_tpu_torch.data.loader import make_loader
 from synthesis_in_style_tpu_torch.data.segmentation_dataset import AugmentedSegmentationDataset
 from synthesis_in_style_tpu_torch.training_builder import get_train_builder_class
 from synthesis_in_style_tpu_torch.utils.checkpoint import snapshot_iteration
+from synthesis_in_style_tpu_torch.utils.profiling import trace
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -67,12 +72,8 @@ def sanity_check_config(config: dict) -> None:
 
 def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
-    if config.get("resume_ckpt") == "latest":
-        raise _not_ported("--resume-ckpt latest")
-    for key, flag in (("cache_root", "--cache-root"), ("wandb_project_name", "wandb logging"),
-                      ("profile_dir", "--profile-dir")):
-        if config.get(key):
-            raise _not_ported(flag)
+    if config.get("wandb_project_name"):
+        raise _not_ported("wandb logging")
     if config.get("network", "DocUFCN") != "DocUFCN":
         raise _not_ported(f"network {config['network']}")
     if config.get("dataset", "wpi") != "wpi":
@@ -84,11 +85,13 @@ def check_supported(config: dict) -> None:
 
 def get_data_loader(json_path: Path, config: dict, args: argparse.Namespace,
                     validation: bool = False, pin_memory: bool = False):
+    image_loader = (CachingLoader(json_path.parent, config["cache_root"])
+                    if config.get("cache_root") else resilient_loader)
     dataset = AugmentedSegmentationDataset(
         json_path, class_to_color_map_path=Path(args.class_to_color_map),
         root=json_path.parent, image_size=config["image_size"],
         num_augmentations=config.get("num_augmentations", 1),
-        num_input_channels=config.get("input_dim", 3))
+        num_input_channels=config.get("input_dim", 3), loader=image_loader)
     num_workers = 0 if args.debug else int(config.get("num_workers", 8))
     return make_loader(dataset, int(config["batch_size"]), shuffle=not validation,
                        drop_last=not validation, num_workers=num_workers,
@@ -105,6 +108,10 @@ def main(args: argparse.Namespace) -> Trainer:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available")
     seed = int(config.get("seed", 0))
+    # 'latest' and an explicit snapshot both resume iteration and data position
+    find_latest_resume(config, Path(args.log_dir))
+    resume_iteration = snapshot_iteration(config["resume_ckpt"]) if config.get("resume_ckpt") \
+        else 0
 
     pin = device.type == "cuda"
     train_loader = get_data_loader(Path(config["train_json"]), config, args, pin_memory=pin)
@@ -113,10 +120,8 @@ def main(args: argparse.Namespace) -> Trainer:
                   if config.get("validation_json") else None)
     builder = get_train_builder_class(config)(config, train_loader, val_loader, seed=seed,
                                               device=device)
-    resume_iteration = 0
     if config.get("resume_ckpt"):
         builder.resume(config["resume_ckpt"])
-        resume_iteration = snapshot_iteration(config["resume_ckpt"])
 
     if "max_iter" in config:
         stop_trigger = (int(config["max_iter"]), "iteration")
@@ -140,7 +145,8 @@ def main(args: argparse.Namespace) -> Trainer:
     trainer.extend(LRReporter({"main": builder.lr_schedule()}, trigger=log_trigger))
     trainer.extend(LogWriter(args.log_dir, trigger=log_trigger))
     try:
-        trainer.train()
+        with trace(config.get("profile_dir")):
+            trainer.train()
     finally:
         updater.iterators["images"].close()
     return trainer
@@ -159,10 +165,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fine-tune", default=None, help="Path to model to finetune from")
     parser.add_argument("--resume-ckpt", dest="resume_ckpt", default=None,
                         help="snapshot to resume network, optimizer, iteration and data "
-                        "position from ('latest' is not ported yet)")
+                        "position from; 'latest' takes the newest snapshot across this "
+                        "run's timestamped attempts")
     parser.add_argument("--class-to-color-map", default="handwriting_colors.json")
     parser.add_argument("-c", "--cache-root", default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="copy the images to this directory on first read and read "
+                        "them from there")
     parser.add_argument("-l", "--log-dir", default="training", help="outputs path")
     parser.add_argument("-ln", "--log-name", default="training")
     parser.add_argument("--warm-restarts", action="store_true", default=None)
@@ -171,7 +179,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb-entity", default=None)
     parser.add_argument("--debug", action="store_true", default=False)
     parser.add_argument("--profile-dir", default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="write a torch.profiler Chrome trace of the run to "
+                        "<dir>/trace.json")
     parser.add_argument("-d", "--device", default="cuda",
                         help="torch device to train on (default cuda)")
     parser.add_argument("--local_rank", type=int, default=None,

@@ -7,17 +7,29 @@ Adam with global-norm clipping and a cosine learning rate to 1e-8,
 `compute_dtype`, `freeze_stochastic_noise_layers` (true = every layer, or a
 list of layer indices), snapshots in the reference `.pt` layout
 (`<log_dir>/checkpoints/iter_<n>.pt`; their `g_ema` loads into the port's
-dataset CLI), `log.jsonl`, sample grids and the collapse alarm.
-`--resume-ckpt` takes a snapshot of the port or a reference `.pt`.
+dataset CLI), `log.jsonl`, sample grids and the divergence alarm.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md):
-`--resume-ckpt latest`, `--init-ckpt`, `--val-images` (FID), `--cache-root`,
-wandb logging, `--profile-dir`, the swagan and StyleGAN1 variants, and more
-than one process.
+* `--resume-ckpt <snapshot>` takes a snapshot of the port or a reference
+  `.pt`: weights, optimizer states and the path-length mean.
+  `--resume-ckpt latest` takes the newest snapshot across this run's
+  timestamped attempts and restores the iteration and the data position
+  too; with none found it starts fresh.
+* `--init-ckpt <snapshot>`: weights-only, shape-tolerant warm start, e.g. a
+  256px run from a 128px snapshot (utils/checkpoint.py
+  `upscale_gan_snapshot_tree`); optimizers and iteration start fresh;
+  ignored when `latest` found a snapshot.
+* `--val-images`: FID of g_ema against those images every `fid_eval_iter`
+  iterations (evaluation/fid.py; a relative FID unless calibrated weights
+  are found), which the divergence alarm watches.
+* `-c/--cache-root`: images copied to a local cache on first read.
+* `--profile-dir`: a torch.profiler Chrome trace of the run.
+
+Not ported yet (each raises NotImplementedError, see ROADMAP.md): wandb
+logging, the swagan and StyleGAN1 variants, and more than one process.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.train_stylegan_2 <config.yaml> \\
-      --images train.json -l out [-d cuda]
+      --images train.json [--val-images val.json] -l out [-d cuda]
 """
 
 from __future__ import annotations
@@ -26,14 +38,14 @@ import argparse
 import datetime
 import os
 from pathlib import Path
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
-from torch.utils.data import DataLoader
 
 from synthesis_in_style_tpu_torch.core.config import (
     load_config_file,
+    load_config_from_checkpoint,
     merge_config_and_args,
     save_run_config,
 )
@@ -46,16 +58,31 @@ from synthesis_in_style_tpu_torch.core.extensions import (
 )
 from synthesis_in_style_tpu_torch.core.schedules import clamped_cosine
 from synthesis_in_style_tpu_torch.core.trainer import Trainer
-from synthesis_in_style_tpu_torch.data.json_dataset import JSONDataset, normalize_to_tensor
-from synthesis_in_style_tpu_torch.data.loader import EpochStream
+from synthesis_in_style_tpu_torch.data.json_dataset import (
+    CachingLoader,
+    JSONDataset,
+    normalize_to_tensor,
+    resilient_loader,
+)
+from synthesis_in_style_tpu_torch.data.loader import EpochStream, make_loader
+from synthesis_in_style_tpu_torch.evaluation.fid import make_fid_extension
 from synthesis_in_style_tpu_torch.models.factory import get_discriminator, get_generator
 from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import (
     StyleGAN2Config,
+    GANTrainState,
     StyleGAN2Updater,
     create_gan_train_state,
 )
-from synthesis_in_style_tpu_torch.utils.checkpoint import load_gan_snapshot, save_gan_snapshot
+from synthesis_in_style_tpu_torch.utils.checkpoint import (
+    discover_latest_snapshot,
+    load_gan_snapshot,
+    merge_matching_leaves,
+    save_gan_snapshot,
+    snapshot_iteration,
+    upscale_gan_snapshot_tree,
+)
 from synthesis_in_style_tpu_torch.utils.dataset_creation import make_image
+from synthesis_in_style_tpu_torch.utils.profiling import trace
 
 
 class GANImageDataset(JSONDataset):
@@ -94,16 +121,52 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
-    if config.get("resume_ckpt") == "latest":
-        raise _not_ported("--resume-ckpt latest")
-    for key, flag in (("init_ckpt", "--init-ckpt"), ("val_images", "--val-images (FID)"),
-                      ("cache_root", "--cache-root"), ("wandb_project_name", "wandb logging"),
-                      ("profile_dir", "--profile-dir")):
-        if config.get(key):
-            raise _not_ported(flag)
+    if config.get("wandb_project_name"):
+        raise _not_ported("wandb logging")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 or config.get("local_rank") or \
             config.get("mpi_backend"):
         raise _not_ported("training in more than one process")
+
+
+def find_latest_resume(config: dict, log_dir: Path) -> int:
+    """`--resume-ckpt latest`: point `config["resume_ckpt"]` at the newest
+    snapshot across the timestamped attempts beside `log_dir` (None when
+    there is none) and return its iteration (0 when starting fresh). Any
+    other value is left as it is; its iteration is 0."""
+    if config.get("resume_ckpt") != "latest":
+        return 0
+    found = discover_latest_snapshot(log_dir.parent)
+    if found is None:
+        print("--resume-ckpt latest: no snapshot found, starting fresh", flush=True)
+        config["resume_ckpt"] = None
+        return 0
+    iteration = snapshot_iteration(found)
+    print(f"--resume-ckpt latest: resuming {found} at iteration {iteration}", flush=True)
+    config["resume_ckpt"] = str(found)
+    return iteration
+
+
+def warm_start(state: GANTrainState, init_ckpt: Union[str, Path], image_size: int) -> dict:
+    """`--init-ckpt`: weights only, shape-tolerant. The snapshot's networks
+    are re-keyed from its own image_size (the config beside it) to
+    `image_size` and each of generator, discriminator and g_ema takes every
+    tensor whose name, shape and dtype match; the rest keep their fresh init.
+    Optimizer states are never read. Returns {key: (copied, fresh)}."""
+    src_config = load_config_from_checkpoint(init_ckpt)
+    src_size = int(src_config.get("image_size", image_size))
+    tree = upscale_gan_snapshot_tree(load_gan_snapshot(init_ckpt), src_size, image_size)
+    counts = {}
+    for key, module in (("generator", state.generator), ("discriminator", state.discriminator),
+                        ("g_ema", state.g_ema)):
+        if key not in tree:
+            continue
+        fresh_state = module.state_dict()
+        merged, copied, fresh = merge_matching_leaves(fresh_state, tree[key])
+        module.load_state_dict(merged, strict=True)
+        counts[key] = (copied, fresh)
+        print(f"warm start {key} from {src_size}px: {copied} copied, {fresh} kept fresh",
+              flush=True)
+    return counts
 
 
 def frozen_noise_layers(config: dict, num_layers: int) -> Tuple[int, ...]:
@@ -124,14 +187,18 @@ def main(args: argparse.Namespace) -> Trainer:
     log_dir = Path(config["log_dir"])
     seed = int(config.get("seed", 0))
 
+    resume_iteration = find_latest_resume(config, log_dir)
+
     json_path = Path(config["images"])
-    dataset = GANImageDataset(json_path, root=json_path.parent,
+    image_loader = (CachingLoader(json_path.parent, config["cache_root"])
+                    if config.get("cache_root") else resilient_loader)
+    dataset = GANImageDataset(json_path, root=json_path.parent, loader=image_loader,
                               image_size=config["image_size"],
                               num_channels=config.get("input_dim", 3))
-    loader = DataLoader(dataset, batch_size=int(config["batch_size"]), shuffle=True,
-                        drop_last=True, generator=torch.Generator().manual_seed(seed),
-                        num_workers=0 if args.debug else int(config.get("num_workers", 8)),
-                        pin_memory=device.type == "cuda")
+    # the JAX loader's per-epoch order, which `seek` can resume into
+    loader = make_loader(dataset, int(config["batch_size"]), shuffle=True, drop_last=True,
+                         num_workers=0 if args.debug else int(config.get("num_workers", 8)),
+                         seed=seed, pin_memory=device.type == "cuda")
 
     init_rng = torch.Generator().manual_seed(seed)
     gen = get_generator(config).init_weights(init_rng).to(device)
@@ -139,6 +206,8 @@ def main(args: argparse.Namespace) -> Trainer:
     settings = optimizer_settings(config)
     (g_schedule, g_betas), (d_schedule, d_betas) = settings["generator"], settings["discriminator"]
     state = create_gan_train_state(gen, disc, g_schedule, d_schedule, g_betas, d_betas)
+    if config.get("init_ckpt") and not config.get("resume_ckpt"):
+        warm_start(state, config["init_ckpt"], int(config["image_size"]))
     if config.get("resume_ckpt"):
         snap = load_gan_snapshot(config["resume_ckpt"])
         for key, module in (("generator", state.generator), ("discriminator", state.discriminator),
@@ -165,6 +234,9 @@ def main(args: argparse.Namespace) -> Trainer:
     stream = EpochStream(loader, key="images")
     updater = StyleGAN2Updater(state, {"images": stream}, batch_size=int(config["batch_size"]),
                                cfg=gan_cfg, seed=seed, device=device)
+    if resume_iteration:
+        updater.iteration = state.step = resume_iteration
+        stream.seek(resume_iteration)
     trainer = Trainer(updater, (int(config["max_iter"]), "iteration"), log_dir=log_dir)
     save_run_config(log_dir, config, args)
 
@@ -194,12 +266,15 @@ def main(args: argparse.Namespace) -> Trainer:
     log_trigger = (int(config.get("log_iter", 10)), "iteration")
     trainer.extend(LRReporter({"generator": g_schedule, "discriminator": d_schedule},
                               trigger=log_trigger))
+    if config.get("val_images") and not args.debug:
+        trainer.extend(make_fid_extension(lambda t: t.updater.state, config, device))
     alarm_cfg = dict(config.get("quality_alarm") or {})
     if alarm_cfg.pop("enabled", True) and not args.debug:
         trainer.extend(DivergenceAlarm(trigger=(1, "epoch"), log_dir=log_dir, **alarm_cfg))
     trainer.extend(LogWriter(log_dir, trigger=log_trigger))
     try:
-        trainer.train()
+        with trace(config.get("profile_dir")):
+            trainer.train()
     finally:
         stream.close()
     return trainer
@@ -210,14 +285,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("config", help="path to yaml or json config")
     parser.add_argument("--images", default=None, help="Path to json file with train images")
     parser.add_argument("--val-images", dest="val_images", default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="json file of validation images: FID of g_ema against them "
+                        "every fid_eval_iter iterations (relative FID unless "
+                        "$SIS_METRIC_WEIGHTS/inception_v3.npz exists)")
     parser.add_argument("--resume-ckpt", dest="resume_ckpt", default=None,
                         help="GAN snapshot (.pt) of the port or of the reference to "
-                        "resume weights, optimizer states and the path-length mean from")
+                        "resume weights, optimizer states and the path-length mean from; "
+                        "'latest' takes the newest snapshot across this run's timestamped "
+                        "attempts and restores the iteration and data position too")
     parser.add_argument("--init-ckpt", dest="init_ckpt", default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="weights-only, shape-tolerant warm start from a GAN snapshot "
+                        "(e.g. a 256px run from a 128px one); optimizers and iteration "
+                        "start fresh")
     parser.add_argument("-c", "--cache-root", default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="copy the training images to this directory on first read "
+                        "and read them from there")
     parser.add_argument("-s", "--stylegan-variant", type=str.lower,
                         choices=["1", "2", "swagan"], default=None,
                         help="which stylegan variant to use (only 2 is ported)")
@@ -228,7 +310,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb-entity", default=None)
     parser.add_argument("--debug", action="store_true", default=False)
     parser.add_argument("--profile-dir", default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="write a torch.profiler Chrome trace of the run to "
+                        "<dir>/trace.json")
     parser.add_argument("-d", "--device", default="cuda",
                         help="torch device to train on (default cuda)")
     parser.add_argument("--local_rank", type=int, default=None,

@@ -146,9 +146,12 @@ class TrainingDiverged(RuntimeError):
 class DivergenceAlarm(Extension):
     """Collapse / divergence monitor.
 
-    * ``fid_divergence``: the relative FID of `trainer.last_evaluation` rose
-      for ``fid_rising_evals`` consecutive evaluations. The port has no FID
-      evaluator yet, so this branch stays inert.
+    * ``fid_divergence``: the (relative) FID that the GAN CLI's FID
+      Evaluator (evaluation/fid.py, priority 250, before this one) left in
+      `trainer.last_evaluation` rose for ``fid_rising_evals`` consecutive
+      evaluations. Each firing (and `finalize`, for an evaluation made
+      after the last firing: the end of training or an interrupt) adds the
+      latest evaluation to ``fid_history``, once per evaluated iteration.
     * ``d_collapse``: the mean train/discriminator_loss of the current
       reporter window stayed below ``d_loss_eps`` for ``d_loss_checks``
       consecutive checks after ``warmup_iterations``.
@@ -191,7 +194,7 @@ class DivergenceAlarm(Extension):
         if kind in self.abort if isinstance(self.abort, set) else self.abort:
             raise TrainingDiverged(f"{kind} at iteration {it}: {detail}")
 
-    def run(self, trainer: Trainer):
+    def _check_fid(self, trainer: Trainer):
         last_eval = getattr(trainer, "last_evaluation", None)
         if (last_eval is not None and self.fid_key in last_eval
                 and last_eval["iteration"] > self._seen_eval_iteration):
@@ -203,6 +206,11 @@ class DivergenceAlarm(Extension):
                 if all(b > a for a, b in zip(tail, tail[1:])):
                     self._fire(trainer, "fid_divergence", {"rising_evals": n, "fid_tail": tail})
 
+    def finalize(self, trainer: Trainer):
+        self._check_fid(trainer)
+
+    def run(self, trainer: Trainer):
+        self._check_fid(trainer)
         if trainer.updater.iteration >= self.warmup_iterations:
             d_mean = trainer.reporter.peek(self.d_loss_key)
             if d_mean is not None:

@@ -2,12 +2,14 @@
 synthesis_in_style_tpu/data/json_dataset.py).
 
 A manifest is a JSON list of image paths, or of dicts with a 'file_name'
-key, relative to `root`. Images decode with PIL."""
+key, relative to `root`. Images decode with PIL; `CachingLoader` copies
+them to a local cache on first read."""
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from pathlib import Path
 from typing import Callable, List, Optional, Union
 
@@ -38,6 +40,38 @@ def resilient_loader(path: Union[str, Path]) -> np.ndarray:
     except Exception as e:  # noqa: BLE001 - any decode failure, as the reference
         print(f"Could not load {path} with exception: {e}")
         return np.zeros((256, 256, 3), np.uint8)
+
+
+class CachingLoader:
+    """A copy-once local cache in front of a base loader (`-c/--cache-root`):
+    a file under `source_root` is copied to the same relative path under
+    `cache_root` on first use and read from there afterwards; other paths,
+    and files that cannot be copied, go to the base loader as they are."""
+
+    def __init__(self, source_root: Union[str, Path], cache_root: Union[str, Path],
+                 base_loader: Callable = resilient_loader):
+        self.source_root = Path(source_root)
+        self.cache_root = Path(cache_root)
+        self.base_loader = base_loader
+
+    def __call__(self, path: Union[str, Path]) -> np.ndarray:
+        path = Path(path)
+        try:
+            rel = path.relative_to(self.source_root)
+        except ValueError:
+            return self.base_loader(path)
+        cached = self.cache_root / rel
+        if not cached.exists():
+            cached.parent.mkdir(parents=True, exist_ok=True)
+            try:
+                # through a temporary name: loader workers may copy the same
+                # file at once, and a reader must never see half of it
+                tmp = cached.with_name(f"{cached.name}.{os.getpid()}.tmp")
+                shutil.copyfile(path, tmp)
+                os.replace(tmp, cached)
+            except OSError:
+                return self.base_loader(path)
+        return self.base_loader(cached)
 
 
 class JSONDataset:

@@ -21,13 +21,20 @@ snapshot (`save_gan_snapshot` / `load_gan_snapshot`) is a `.pt` in the
 reference layout: `generator`, `discriminator` and `g_ema` state dicts,
 `generator_optimizer` and `discriminator_optimizer` torch optimizer states,
 and `training_state` with `mean_path_length`.
+
+`discover_latest_snapshot` finds the newest `iter_<N>.pt` across a run's
+timestamped attempts (`--resume-ckpt latest`); `upscale_gan_snapshot_tree`
+and `merge_matching_leaves` warm-start a larger GAN from a smaller one's
+state dicts (`--init-ckpt`); `vgg16_features_params_from_jax` and
+`inception_v3_params_from_jax` carry the FID backbones' weights across.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -317,3 +324,137 @@ def snapshot_iteration(path: Union[str, Path]) -> int:
     stem = Path(path).stem
     digits = stem[len("iter_"):]
     return int(digits) if stem.startswith("iter_") and digits.isdigit() else 0
+
+
+# ---------------------------------------------------------------------------
+# snapshot discovery (`--resume-ckpt latest`)
+
+
+def _is_snapshot_file(path: Path) -> bool:
+    """A finished snapshot: an `iter_<N>.pt` file (never a `.tmp` that a
+    crash left mid-write)."""
+    return path.is_file() and path.suffix == ".pt" and path.stem.startswith("iter_")
+
+
+def latest_snapshot(checkpoint_dir: Union[str, Path]) -> Optional[Path]:
+    """Newest `iter_<N>.pt` snapshot in a checkpoints directory, or None."""
+    checkpoint_dir = Path(checkpoint_dir)
+    snaps = sorted(p for p in checkpoint_dir.glob("iter_*.pt") if _is_snapshot_file(p))
+    return snaps[-1] if snaps else None
+
+
+def discover_latest_snapshot(run_root: Union[str, Path]) -> Optional[Path]:
+    """`--resume-ckpt latest`: the highest-iteration snapshot across every
+    timestamped attempt under a `logs/<log_dir>/<log_name>` root (a restarted
+    run gets a fresh timestamp directory, so the previous attempt's snapshots
+    live in a sibling). Also accepts one run directory or a bare checkpoints
+    directory; ties break toward the newest mtime."""
+    run_root = Path(run_root)
+    candidates = [*run_root.glob("*/checkpoints/iter_*.pt"),
+                  *run_root.glob("checkpoints/iter_*.pt"), *run_root.glob("iter_*.pt")]
+    candidates = [c for c in candidates if _is_snapshot_file(c)]
+    if not candidates:
+        return None
+    return max(candidates, key=lambda c: (snapshot_iteration(c), c.stat().st_mtime))
+
+
+# ---------------------------------------------------------------------------
+# shape-tolerant warm start (`--init-ckpt`)
+
+
+def merge_matching_leaves(fresh: Dict[str, torch.Tensor], loaded: Dict[str, Any]):
+    """Copy every tensor of `loaded` whose key is in `fresh` with the same
+    shape and dtype; keep `fresh`'s init for every other key (missing, another
+    shape or dtype, or not a tensor at all). Returns (merged state dict,
+    copied count, fresh count)."""
+    merged, copied = {}, 0
+    for key, value in fresh.items():
+        src = loaded.get(key)
+        if (isinstance(src, torch.Tensor) and src.shape == value.shape
+                and src.dtype == value.dtype):
+            merged[key] = src.detach().clone()
+            copied += 1
+        else:
+            merged[key] = value
+    return merged, copied, len(fresh) - copied
+
+
+def upscale_gan_snapshot_tree(snapshot: Dict[str, Any], source_size: int,
+                              target_size: int) -> Dict[str, Any]:
+    """Re-key a smaller-resolution GAN snapshot ({"generator",
+    "discriminator", "g_ema": state dict, ...}) so its tensors land on the
+    matching stages of a larger-resolution model (the 128px -> 256px warm
+    start).
+
+    The generator's and g_ema's `convs.i`, `to_rgbs.i` and `noises.noise_i`
+    count from the 4px end, so they already line up by name. The
+    discriminator's blocks count from the input resolution down: `convs.0` is
+    its input layer (another channel count at the new size, dropped) and
+    `convs.{i+1}` its i-th block, which becomes `convs.{i+1+shift}` with
+    shift = log2(target) - log2(source). Apply with `merge_matching_leaves`:
+    any shape that still differs keeps its fresh init."""
+    shift = int(math.log2(target_size)) - int(math.log2(source_size))
+    if shift < 0:
+        raise ValueError(f"cannot warm-start a {target_size}px model from a larger "
+                         f"{source_size}px snapshot")
+    out = dict(snapshot)
+    disc = snapshot.get("discriminator")
+    if isinstance(disc, dict) and shift > 0:
+        renamed = {}
+        for key, value in disc.items():
+            parts = key.split(".")
+            if parts[0] == "convs" and len(parts) > 1 and parts[1].isdigit():
+                index = int(parts[1])
+                if index == 0:
+                    continue
+                key = ".".join(["convs", str(index + shift), *parts[2:]])
+            renamed[key] = value
+        out["discriminator"] = renamed
+    return out
+
+
+# ---------------------------------------------------------------------------
+# metric backbones carried across from the JAX package
+
+
+def _hwio_to_oihw(kernel) -> np.ndarray:
+    return np.asarray(kernel).transpose(3, 2, 0, 1)
+
+
+def vgg16_features_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's VGG16Features params (`conv_<i>` with `kernel` HWIO
+    and `bias`; the bare tree or {"params": tree}) -> the port's VGG16Features
+    state dict (`convs.<i>.weight` OIHW, `convs.<i>.bias`)."""
+    params = params.get("params", params)
+    sd = {}
+    for name, p in params.items():
+        i = int(name.rsplit("_", 1)[1])
+        sd[f"convs.{i}.weight"] = _hwio_to_oihw(p["kernel"])
+        sd[f"convs.{i}.bias"] = np.asarray(p["bias"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def inception_v3_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's InceptionV3Features variables ({"params",
+    "batch_stats"}; each BasicConv is {"conv": {"kernel"}, "bn": {"scale",
+    "bias"}} with {"bn": {"mean", "var"}} statistics) -> the port's state dict
+    in torchvision's key layout (`<path>.conv.weight`, `<path>.bn.weight`,
+    `.bias`, `.running_mean`, `.running_var`, `.num_batches_tracked`)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def visit(p: Dict[str, Any], s: Dict[str, Any], path: Tuple[str, ...]) -> None:
+        if "conv" in p and "bn" in p:
+            prefix = ".".join(path)
+            sd[f"{prefix}.conv.weight"] = _hwio_to_oihw(p["conv"]["kernel"])
+            sd[f"{prefix}.bn.weight"] = np.asarray(p["bn"]["scale"])
+            sd[f"{prefix}.bn.bias"] = np.asarray(p["bn"]["bias"])
+            sd[f"{prefix}.bn.running_mean"] = np.asarray(s["bn"]["mean"])
+            sd[f"{prefix}.bn.running_var"] = np.asarray(s["bn"]["var"])
+            sd[f"{prefix}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+            return
+        for name, sub in p.items():
+            visit(sub, s[name], path + (name,))
+
+    visit(variables["params"], variables["batch_stats"], ())
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if v.dtype == np.int64
+                                         else np.float32)) for k, v in sd.items()}

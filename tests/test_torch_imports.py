@@ -59,10 +59,24 @@ DISCOVERY_MODULES = (
     "synthesis_in_style_tpu_torch.scripts.auto_label_clusters",
 )
 
+# the capstone recipe's training legs: resume, warm start, FID, fixture, chain
+CAPSTONE_MODULES = (
+    "synthesis_in_style_tpu_torch.utils.checkpoint",
+    "synthesis_in_style_tpu_torch.utils.profiling",
+    "synthesis_in_style_tpu_torch.data.json_dataset",
+    "synthesis_in_style_tpu_torch.losses.feature_extractors",
+    "synthesis_in_style_tpu_torch.models.inception_v3",
+    "synthesis_in_style_tpu_torch.evaluation.fid",
+    "synthesis_in_style_tpu_torch.cli.train_stylegan_2",
+    "synthesis_in_style_tpu_torch.cli.train",
+    "synthesis_in_style_tpu_torch.scripts.make_capstone_fixture",
+    "synthesis_in_style_tpu_torch.scripts.run_capstone_chain",
+)
+
 _IMPORT_LINE = re.compile(r"^\s*(?:import|from)\s+(cv2|jax|synthesis_in_style_tpu)(?:\s|\.|$)")
 
 
-@pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES)
+@pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES + CAPSTONE_MODULES)
 def test_host_route_modules_import_no_cv2_and_no_jax(module):
     """No import line of the module names cv2, jax or the JAX package, and it
     imports where both are blocked."""
