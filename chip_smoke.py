@@ -58,7 +58,10 @@
    --contour-workers 2 (label pixels identical), the host route's stages
    per batch (synthesis, masks to the host, host half in process and in 2
    warm workers, PNG writing), and the host and device back halves on one
-   batch of the path's own masks (<= 3 % of pixels apart).
+   batch of the path's own masks (<= 3 % of pixels apart). PNG pairs are
+   written over a thread per core (`utils/png.write_png_batch`); the device
+   route runs once more with one writer thread, and its per-batch stages
+   time both writers, for the comparison in one run.
 8. Drives the training CLI (`train_stylegan_2`) on the shipped
    configs/stylegan/stylegan_256px.yaml (bfloat16, frozen noise on layers
    0-5, the shipped regularization) with batch 16, 8 iterations and a
@@ -76,7 +79,8 @@
    configs/segmenter/stylegan2_doc_ufcn_segmenter.yaml (DocUFCN 32/64/128/256,
    256px, batch 8, bfloat16) for 16 iterations with one validation pass at
    the end, once to warm up and once measured (launch counts set to 0
-   before, read after); the loader alone and the training step alone (on a
+   before, read after); the loader alone (a pass that starts its workers,
+   then one on the same workers, kept) and the training step alone (on a
    batch already on the card, one step under torch.profiler); the trained
    full-width DocUFCN forward, card vs CPU with TF32 off. Then
    `analyze_image_segments --use-device-component-filter` with its snapshot
@@ -91,9 +95,36 @@
    analyze CLI at 0.7 / 55 without --use-device-component-filter (the host
    contour filter; its launch counts from 0), pages/s with that filter, and
    one page with -vis and every drawing flag (its images must exist).
-10. The capstone recipe's training legs at the recipe's widths, cut in
+10. Whole-page serving on that snapshot and those pages (0.7 / 55):
+   pages/s of the unfused path, the fused path one page a call (a CUDA
+   graph per page tiling) and `segment_images` 4 pages a replay, each in
+   float32 and bfloat16 (48 pages a reading, after a first pass that
+   captures the graphs), and one fused page under torch.profiler; with
+   TF32 off, fused against unfused (confidences within 1e-5, class maps
+   >= 99.9 %), each graph replay against the eager body on the same inputs
+   (within 1e-5), bfloat16 against float32 class maps (>= 0.99 at 0.0 / 0,
+   the JAX package's gate, on the trained snapshot; 0.7 / 55 reported), the
+   first and the last again on a seeded multi-class DocUFCN (its bfloat16
+   class map >= 0.99 on the pixels with a float32 logit margin >= 4, which
+   must be a quarter of the page or more; all pixels reported), and a
+   mixed-size set (2048x1536, 1536x2048, 1700x1200, 2480x3508, 2000x1500)
+   served with bucket_quantum 0, None and page by page (within 1e-5; 4, 5
+   and 5 graphs); a sweep 0.0 / 0.7 x 0 / 55 that must capture no graph
+   beyond the structural ones, with the CC labellings per page counted
+   from the replays x the labellings each capture recorded (> 0 at area
+   55), equal to what the wrapper's launch count gained (a capture
+   counts apart, a replay adds its labellings); then the analyze CLI in
+   throughput mode (`--fused-page-inference --pages-per-batch 4`, launch
+   counts from 0), whose confusion matrices must count no more than 1e-6
+   of a page's pixels differently from the unfused CLI's (argmax
+   near-ties: its class output skips the vote normalization, as the JAX
+   package's does); both CLI modes at 0.7 / 55 over 16 and 48 pages
+   (steady-state pages/s from the difference); and the phase's peak
+   reserved memory.
+11. The capstone recipe's training legs at the recipe's widths, cut in
    iterations and sample counts only: `make_capstone_fixture --size 256
-   --num-pages 64 --num-eval 8` (host); `train_stylegan_2
+   --num-pages 64 --num-eval 8` (host); the 128px leg's loader alone over
+   three epochs (8 workers kept); `train_stylegan_2
    configs/stylegan/capstone_128px.yaml --val-images` cut to 40 iterations,
    snapshots and FID every 20 on 64 samples, its first attempt interrupted
    after the iteration-20 snapshot and a second one with `--resume-ckpt
@@ -112,7 +143,7 @@
    0 with its seconds and best_dice finite in [0, 1]; the fallback FID
    embedding's features card vs CPU with TF32 off (within 1e-4 relative)
    and one Frechet distance on each.
-   Steps 5, 7 to 9 and the GAN legs of 10 run with PyTorch's defaults (TF32
+   Steps 5, 7 to 10 and the GAN legs of 11 run with PyTorch's defaults (TF32
    cuDNN convolutions, float32 matmuls).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
@@ -138,9 +169,10 @@ segmenter training CLI on the dataset's pairs
   python -m synthesis_in_style_tpu_torch.cli.train \
       configs/segmenter/stylegan2_doc_ufcn_segmenter.yaml --images train.json \
       --val-images val.json --class-to-color-map configs/handwriting_colors.json -l <dir>
-and page inference with its snapshot
+and page inference with its snapshot, page by page or in throughput mode
   python -m synthesis_in_style_tpu_torch.cli.analyze_image_segments <pages> \
-      -f eval.json -gt <gt> -o <out> -cds --use-device-component-filter
+      -f eval.json -gt <gt> -o <out> -cds --use-device-component-filter \
+      [--fused-page-inference --pages-per-batch 4] [--serving-dtype bfloat16]
 Their CPU counterparts, against the JAX package at small sizes:
   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q
 
@@ -163,7 +195,13 @@ counters that the plain bias-act and blur functions increment; then
 (~10 s).
 The segmenter phase rehearses the same way (`segmenter_phase`, with
 SEG_OVERRIDES, PAGE_H / PAGE_W / NUM_PAGES shrunk and bench_ms,
-profile_call, _no_sync and the CC kernel's backend stubbed).
+profile_call, _no_sync and the CC kernel's backend stubbed), and the
+serving phase after it (`serving_phase(root, Path(seg["snapshot"]),
+Path(seg["pages"]), Path(seg["pages_gt"]), fns)` on what it returns, with
+MIXED_SIZES shrunk so that two pages share a bucket of the patch size,
+e.g. 192x160 and 180x150 at 64-px patches, and seeded_page_network giving
+a small network for pages under 256 px; ~45 s both). On the CPU the
+page programs run eagerly, so no graph is captured and no replay counted.
 So does the capstone phase: `capstone_phase(root, fns)` with DEVICE =
 "cpu", CAPSTONE_WIDTHS giving both legs a small generator (latent_size 32,
 n_mlp 2, batch_size 4, image_size 16 / 32), small CAPSTONE_*_CUTS and
@@ -898,7 +936,7 @@ def stage_times(run: Path, save_to: Path) -> dict:
     seg = cds.get_dataset_segmenter(argparse.Namespace(num_clusters=NUM_CLUSTERS),
                                     CREATION_CONFIG, 256, run / "semantic_segmentation", "cuda")
     stream = build_latent_and_noise_generator({"batch_size": BATCH}, seed=2, device="cuda")
-    totals = {"synthesis_s": 0.0, "segmentation_s": 0.0, "png_s": 0.0}
+    totals = {"synthesis_s": 0.0, "segmentation_s": 0.0, "png_s": 0.0, "png_1thread_s": 0.0}
     for step in range(4):
         t0 = time.perf_counter()
         acts, images = generate(next(stream))
@@ -908,10 +946,33 @@ def stage_times(run: Path, save_to: Path) -> dict:
         t2 = time.perf_counter()
         save_generated_images(make_image(images), labels, step * BATCH, save_to, 1000)
         t3 = time.perf_counter()
+        with _one_png_thread():
+            save_generated_images(make_image(images), labels, step * BATCH,
+                                  save_to.with_name(save_to.name + "_1thread"), 1000)
+        t4 = time.perf_counter()
         if step > 0:
-            for key, dt in zip(totals, (t1 - t0, t2 - t1, t3 - t2)):
+            for key, dt in zip(totals, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
                 totals[key] += dt / 3
-    return {**totals, "batch": BATCH}
+    return {**totals, "batch": BATCH, "png_threads": os.cpu_count()}
+
+
+class _one_png_thread:
+    """While active, the dataset path writes its PNGs in one thread (the
+    encoder before the threaded writer), for a comparison in one run."""
+
+    def __enter__(self):
+        import functools
+
+        from synthesis_in_style_tpu_torch.utils import dataset_creation, png
+
+        dataset_creation.write_png_batch = functools.partial(png.write_png_batch,
+                                                             num_threads=1)
+
+    def __exit__(self, *exc):
+        from synthesis_in_style_tpu_torch.utils import dataset_creation, png
+
+        dataset_creation.write_png_batch = png.write_png_batch
+        return False
 
 
 def host_route_phase(run: Path, root: Path, fns: dict) -> dict:
@@ -1453,9 +1514,35 @@ def check_doc_ufcn_card_vs_cpu(snap: Path, dataset: Path) -> float:
     return rel
 
 
+def draw_page(rs, page_h: int = 0, page_w: int = 0):
+    """A synthetic page (light paper, lines of dark printed bars and
+    thinner handwritten strokes, specks) and its colour ground truth, drawn
+    from the numpy generator `rs`; PAGE_H x PAGE_W unless given."""
+    import numpy as np
+
+    page_h, page_w = page_h or PAGE_H, page_w or PAGE_W
+
+    page = np.full((page_h, page_w, 3), 232, np.uint8) + \
+        rs.integers(0, 16, (page_h, page_w, 1), np.uint8)
+    mask = np.zeros((page_h, page_w, 3), np.uint8)
+    for y in range(96, page_h - 96, 48):
+        printed = rs.random() < 0.6
+        x = int(rs.integers(80, 300))
+        while x < page_w - 200:
+            w = int(rs.integers(20, 120))
+            h = 14 if printed else int(rs.integers(4, 10))
+            dy = 0 if printed else int(rs.integers(-6, 7))
+            page[y + dy:y + dy + h, x:x + w] = rs.integers(10, 70)
+            mask[y + dy:y + dy + h, x:x + w] = (0, 0, 255) if printed else (255, 0, 0)
+            x += w + int(rs.integers(8, 30))
+    for _ in range(400):  # specks
+        y, x = rs.integers(0, page_h - 3), rs.integers(0, page_w - 3)
+        page[y:y + 2, x:x + 2] = rs.integers(20, 120)
+    return page, mask
+
+
 def write_pages(root: Path):
-    """NUM_PAGES synthetic 2048x1536 pages (light paper, lines of dark
-    printed bars and thinner handwritten strokes, specks) and their colour
+    """NUM_PAGES synthetic 2048x1536 pages (`draw_page`) and their colour
     ground truth, from a seeded numpy generator."""
     import numpy as np
 
@@ -1466,22 +1553,7 @@ def write_pages(root: Path):
     gt.mkdir()
     rs = np.random.default_rng(SEED + 7)
     for i in range(NUM_PAGES):
-        page = np.full((PAGE_H, PAGE_W, 3), 232, np.uint8) + \
-            rs.integers(0, 16, (PAGE_H, PAGE_W, 1), np.uint8)
-        mask = np.zeros((PAGE_H, PAGE_W, 3), np.uint8)
-        for y in range(96, PAGE_H - 96, 48):
-            printed = rs.random() < 0.6
-            x = int(rs.integers(80, 300))
-            while x < PAGE_W - 200:
-                w = int(rs.integers(20, 120))
-                h = 14 if printed else int(rs.integers(4, 10))
-                dy = 0 if printed else int(rs.integers(-6, 7))
-                page[y + dy:y + dy + h, x:x + w] = rs.integers(10, 70)
-                mask[y + dy:y + dy + h, x:x + w] = (0, 0, 255) if printed else (255, 0, 0)
-                x += w + int(rs.integers(8, 30))
-        for _ in range(400):  # specks
-            y, x = rs.integers(0, PAGE_H - 3), rs.integers(0, PAGE_W - 3)
-            page[y:y + 2, x:x + 2] = rs.integers(20, 120)
+        page, mask = draw_page(rs)
         write_png(pages / f"page_{i}.png", page)
         write_png(gt / f"page_{i}_gt.png", mask)
     return pages, gt
@@ -1721,26 +1793,37 @@ VIS_FLAGS = ("-vis", "--extract-bboxes", "--draw-patches", "--draw-bboxes-on-seg
              "--overlay-segmentation")
 
 
-def segmenter_breakdown(trainer, top: int = 12) -> dict:
-    """The two halves of a segmenter iteration, apart: the training loader
-    alone (a fresh pass: seconds to its first batch, which its workers'
-    start sets, then images/s over up to 18 more batches), and the training
-    step alone on one batch already on the card (10 synchronized steps,
-    then one under torch.profiler)."""
-    from synthesis_in_style_tpu_torch.updaters.segmentation_updater import standard_train_step
-
-    updater = trainer.updater
-    loader = updater.iterators["images"]._loader
+def _loader_pass(loader, n: int):
+    """(seconds to the first batch of a new pass, images/s over up to n
+    more batches, the first batch)."""
     t0 = time.perf_counter()
     batches = iter(loader)
     batch = next(batches)
     first_s = time.perf_counter() - t0
-    n = min(18, len(loader) - 1)
+    n = min(n, len(loader) - 1)
     t0 = time.perf_counter()
     for _ in range(n):
         next(batches)
-    loader_s = time.perf_counter() - t0
-    del batches
+    return first_s, n * loader.batch_size / (time.perf_counter() - t0), batch
+
+
+def segmenter_breakdown(trainer, top: int = 12) -> dict:
+    """The two halves of a segmenter iteration, apart: the training loader
+    alone (a pass after the run, whose workers start with it: seconds to
+    its first batch, then images/s over up to 18 more batches; then a second
+    pass on the same workers, kept), and the training step alone on one
+    batch already on the card (10 synchronized steps, then one under
+    torch.profiler)."""
+    from synthesis_in_style_tpu_torch.data.loader import shutdown_workers
+    from synthesis_in_style_tpu_torch.updaters.segmentation_updater import standard_train_step
+
+    updater = trainer.updater
+    loader = updater.iterators["images"]._loader
+    n = 18
+    first_s, loader_rate, batch = _loader_pass(loader, n)
+    kept_first_s, kept_rate, _ = _loader_pass(loader, n)
+    shutdown_workers(loader)
+    n = min(n, len(loader) - 1)
     size = batch["images"].shape[0]
     on_card = {"images": batch["images"].to(updater.device).permute(0, 3, 1, 2),
                "segmented": batch["segmented"].to(updater.device)}
@@ -1757,11 +1840,13 @@ def segmenter_breakdown(trainer, top: int = 12) -> dict:
     _sync()
     step_s = (time.perf_counter() - t0) / 10
     out = {"loader_first_batch_s": first_s, "loader_batches": n,
-           "loader_images_per_s": n * size / loader_s, "step_s": step_s,
+           "loader_images_per_s": loader_rate, "loader_kept_first_batch_s": kept_first_s,
+           "loader_kept_images_per_s": kept_rate, "step_s": step_s,
            "step_images_per_s": size / step_s, "step_profile": profile_call(step, top)}
-    log(f"segmenter iteration apart: loader first batch {first_s:.3f} s, then "
-        f"{out['loader_images_per_s']:.2f} images/s over {n} batches; step alone "
-        f"{step_s:.4f} s = {out['step_images_per_s']:.2f} images/s")
+    log(f"segmenter iteration apart: loader first batch {first_s:.3f} s with its workers' "
+        f"start, then {loader_rate:.2f} images/s over {n} batches; a second pass on the kept "
+        f"workers {kept_first_s:.3f} s to its first batch, then {kept_rate:.2f} images/s; "
+        f"step alone {step_s:.4f} s = {out['step_images_per_s']:.2f} images/s")
     return out
 
 
@@ -1806,6 +1891,7 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
            "analyze_cli_pages": NUM_PAGES * len(SWEEP["min_confidence"])
            * len(SWEEP["min_contour_area"]),
            "page_launches": page_launches, "page_scores": page_scores, "page": page,
+           "snapshot": str(snap), "pages": str(pages), "pages_gt": str(pages_gt),
            "host_filter_cli_seconds": host_cli_seconds, "host_filter_launches": host_launches,
            "host_filter": host_page}
     log(f"segmenter training path (DocUFCN 32/64/128/256, 256px, batch {batch}, bf16, "
@@ -1825,6 +1911,418 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
             f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
             "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
                       for k in prof["top_kernels"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# whole-page serving: the fused page program (one CUDA graph per page
+# tiling), page batching (segment_images) and bfloat16 serving
+
+SERVING_ROUNDS = 12  # timed passes over the pages per pages/s reading (48 pages)
+# the analyze CLI's page counts for its steady-state rate: 1 and 3 of
+# throughput mode's load chunks (4 x pages per batch), at one sweep setting
+SERVING_CLI_PAGES = (16, 48)
+# pixels whose float32 confidences' top two differ by at least this in log
+# (the logit margin, where patches do not overlap) hold the bfloat16 gate
+BF16_LOGIT_MARGIN = 4.0
+SERVING_PAGES_PER_BATCH = 4
+# (W, H): the phase's page size, its portrait, a smaller scan, A4 at 300 dpi,
+# and one that shares the first one's 256-px bucket but not its tiling
+MIXED_SIZES = ((2048, 1536), (1536, 2048), (1700, 1200), (2480, 3508), (2000, 1500))
+MIXED_PAGES_PER_BATCH = 2
+SERVING_MODES = ("unfused", "fused", "batched")
+
+
+def _serving_segmenter(snap: Path, fused: bool, serving_dtype=None):
+    """The segmenter the analyze CLI builds (vote assembly, device filter),
+    at 0.7 / 55."""
+    from synthesis_in_style_tpu_torch.segmentation.analysis_segmenter import (
+        VotingAssemblySegmenter,
+    )
+
+    seg = VotingAssemblySegmenter(snap, COLOR_MAP, use_device_component_filter=True,
+                                  fused_page_inference=fused, serving_dtype=serving_dtype,
+                                  device=DEVICE)
+    seg.set_hyperparams({"min_confidence": 0.7, "min_contour_area": 55})
+    return seg
+
+
+def _serve(seg, mode: str, images, output: str = "classes"):
+    if mode == "batched":
+        return seg.segment_images(images, SERVING_PAGES_PER_BATCH, output=output)
+    if output == "classes":
+        return [seg.segment_image_classes(image) for image in images]
+    return [seg.segment_image(image) for image in images]
+
+
+def _drop(seg) -> None:
+    """Free a segmenter's graphs and their memory pools."""
+    import gc
+
+    seg._programs.clear()
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serving_rates(snap: Path, images) -> dict:
+    """pages/s of the six serving modes at 0.7 / 55 (class maps to the
+    host): unfused, fused one page per call, fused `segment_images` at
+    SERVING_PAGES_PER_BATCH, each in float32 and bfloat16; one warm pass
+    (it captures the graphs), then SERVING_ROUNDS timed passes (batched:
+    one call over the pages SERVING_ROUNDS times, so that chunks overlap as
+    in the CLI's chunks of 4 x pages_per_batch). One fused float32 page and
+    one batched float32 call of SERVING_PAGES_PER_BATCH pages under
+    torch.profiler."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode in SERVING_MODES:
+            seg = _serving_segmenter(snap, mode != "unfused", dtype)
+            _sync()
+            t0 = time.perf_counter()
+            _serve(seg, mode, images)
+            _sync()
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if mode == "batched":  # one call, as the CLI makes: chunks in flight
+                _serve(seg, mode, images * SERVING_ROUNDS)
+            else:
+                for _ in range(SERVING_ROUNDS):
+                    _serve(seg, mode, images)
+            _sync()
+            seconds = time.perf_counter() - t0
+            out[f"{mode}_{dtype}"] = {
+                "pages_per_s": SERVING_ROUNDS * len(images) / seconds, "seconds": seconds,
+                "first_pass_s": warm_s, "graphs": len(seg.page_programs())}
+            if mode == "fused" and dtype == "float32":
+                profile = profile_call(lambda: seg.segment_image_classes(images[0]))
+            if mode == "batched" and dtype == "float32":
+                batch_profile = profile_call(lambda: _serve(seg, mode, images))
+                geometry = {"patch": seg.patch_size, "batch": seg.batch_size,
+                            "patches_per_page": len(seg.calculate_bboxes_for_patches(
+                                images[0].width, images[0].height))}
+            _drop(seg)
+    return {"modes": out, "profile": profile, "batch_profile": batch_profile,
+            "geometry": geometry}
+
+
+def confident_agreement(want, got, margin: float = BF16_LOGIT_MARGIN) -> tuple:
+    """(share of pixels whose confidences in `want` have their top two at
+    least `margin` apart in log, share of those pixels on which the class
+    maps of `want` and `got` agree); (H, W, C) arrays."""
+    import numpy as np
+
+    top = np.sort(want, axis=-1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        gap = np.log(top[..., -1]) - np.log(top[..., -2])
+    confident = gap >= margin
+    same = want.argmax(-1) == got.argmax(-1)
+    return float(confident.mean()), float(same[confident].mean()) if confident.any() else 0.0
+
+
+def bf16_agreement(make_segmenter, images) -> dict:
+    """bfloat16 serving against float32 (`make_segmenter(dtype)`), over
+    `images`: the share of class-map pixels that agree at 0.0 / 0 and at
+    0.7 / 55, and at 0.0 / 0 `confident_agreement` (the share of pixels
+    with a float32 logit margin >= BF16_LOGIT_MARGIN, and the agreement on
+    them)."""
+    import numpy as np
+
+    out = {}
+    f32, bf16 = make_segmenter(None), make_segmenter("bfloat16")
+    for confidence, area in ((0.0, 0), (0.7, 55)):
+        for seg in (f32, bf16):
+            seg.set_hyperparams({"min_confidence": confidence, "min_contour_area": area})
+        if area == 0:
+            pairs = [(f32.segment_image(image), bf16.segment_image(image)) for image in images]
+            out[f"{confidence} / {area}"] = float(np.mean([
+                (want.argmax(-1) == got.argmax(-1)).mean() for want, got in pairs]))
+            confident = [confident_agreement(want, got) for want, got in pairs]
+            out["confident_share"] = float(np.mean([c[0] for c in confident]))
+            out["confident_agreement"] = float(np.mean([c[1] for c in confident]))
+        else:
+            out[f"{confidence} / {area}"] = float(np.mean([
+                (f32.segment_image_classes(image) == bf16.segment_image_classes(image)).mean()
+                for image in images]))
+    _drop(f32)
+    _drop(bf16)
+    return out
+
+
+def serving_parity(snap: Path, images, mixed) -> dict:
+    """With TF32 off: fused against unfused confidences (within 1e-5, the
+    JAX package's tolerance) and class maps; each graph replay against the
+    eager body on the same inputs (pages the graph was not captured on: it
+    was captured on zeros); the first again on one page with
+    `seeded_page_network`, whose class map holds two classes or more;
+    bfloat16 against float32 class maps on both networks (`bf16_agreement`:
+    the trained snapshot's >= 0.99 at 0.0 / 0, the JAX package's gate and
+    setting; the seeded network's >= 0.99 on its confident pixels, a
+    quarter of the page or more; the rest reported); the mixed-size set served with
+    bucket_quantum 0, None and page by page (within 1e-5), with the graphs
+    each way."""
+    import numpy as np
+
+    set_tf32(False)
+    try:
+        unfused, fused = _serving_segmenter(snap, False), _serving_segmenter(snap, True)
+        fused_diff, class_agree, replay_diff = 0.0, [], 0.0
+        for image in images:
+            want, got = unfused.segment_image(image), fused.segment_image(image)
+            fused_diff = max(fused_diff, float(np.abs(want - got).max()))
+            # the one-page probs program (segment_image's)
+            program = fused._programs[next(key for key in fused._programs
+                                           if key[-2:] == (1, "probs"))]
+            if program._graph is not None:
+                eager = program._body(*program._inputs())
+                replay_diff = max(replay_diff, float((eager - program.output).abs().max()))
+            class_agree.append(float(
+                (fused.segment_image_classes(image) == want.argmax(-1)).mean()))
+        _drop(unfused)
+        _drop(fused)
+
+        # the same on a network whose class map is not one class
+        net = seeded_page_network(images[0])
+
+        def seeded(fused, serving_dtype=None):
+            from synthesis_in_style_tpu_torch.segmentation.analysis_segmenter import (
+                VotingAssemblySegmenter,
+            )
+
+            seg = VotingAssemblySegmenter(
+                None, COLOR_MAP, network=copy.deepcopy(net), device=DEVICE,
+                config={"image_size": 256, "batch_size": SEG_OVERRIDES.get("batch_size", 8)},
+                use_device_component_filter=True, fused_page_inference=fused,
+                serving_dtype=serving_dtype)
+            seg.set_hyperparams({"min_confidence": 0.7, "min_contour_area": 55})
+            return seg
+
+        want = seeded(False).segment_image(images[0])
+        got = seeded(True).segment_image(images[0])
+        seeded_diff = float(np.abs(want - got).max())
+        seeded_shares = [float((want.argmax(-1) == k).mean()) for k in range(want.shape[-1])]
+        bf16_agree = {
+            "trained": bf16_agreement(lambda dtype: _serving_segmenter(snap, True, dtype), images),
+            "seeded": bf16_agreement(lambda dtype: seeded(True, dtype), images[:1])}
+
+        mixed_out, graphs = {}, {}
+        for way, bucket in (("bucket_0", 0), ("bucket_none", None), ("pages", "pages")):
+            seg = _serving_segmenter(snap, True)
+            if bucket == "pages":
+                mixed_out[way] = [seg.segment_image(image) for image in mixed]
+            else:
+                mixed_out[way] = seg.segment_images(mixed, MIXED_PAGES_PER_BATCH,
+                                                    bucket_quantum=bucket)
+            graphs[way] = len(seg.page_programs())
+            _drop(seg)
+        mixed_diff = {way: max(float(np.abs(a - b).max()) for a, b in
+                               zip(mixed_out[way], mixed_out["pages"]))
+                      for way in ("bucket_0", "bucket_none")}
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"fused_vs_unfused_max_abs": fused_diff, "fused_vs_unfused_class_agreement": class_agree,
+           "replay_vs_eager_max_abs": replay_diff, "bf16_vs_f32_class_agreement": bf16_agree,
+           "seeded_fused_vs_unfused_max_abs": seeded_diff, "seeded_class_shares": seeded_shares,
+           "mixed_sizes": [list(size) for size in MIXED_SIZES],
+           "mixed_vs_pages_max_abs": mixed_diff, "mixed_graphs": graphs}
+    if not fused_diff <= 1e-5 or min(class_agree) < 0.999 or not seeded_diff <= 1e-5:
+        raise AssertionError(f"fused vs unfused: max abs {fused_diff} (seeded network "
+                             f"{seeded_diff}), class maps {class_agree}")
+    if sum(share >= 0.01 for share in seeded_shares) < 2:
+        raise AssertionError(f"seeded network: class shares {seeded_shares}, need two >= 1 %")
+    if not replay_diff <= 1e-5:
+        raise AssertionError(f"graph replay vs eager body: max abs {replay_diff}")
+    # the JAX package's gate, on a fitted network at 0.0 / 0
+    # (tests/test_quantized_docufcn.py), holds the trained snapshot. On the
+    # seeded network bfloat16 moves the logits by ~14 % (the JAX package's
+    # own bfloat16 by ~15 %, and its class maps agree on < 0.99 of pixels:
+    # tests/test_torch_serving_dtype.py), so there the gate holds the
+    # pixels with a float32 logit margin >= BF16_LOGIT_MARGIN, which must
+    # be a quarter of the page or more
+    seeded_bf16 = bf16_agree["seeded"]
+    if not (bf16_agree["trained"]["0.0 / 0"] >= 0.99 and seeded_bf16["confident_share"] >= 0.25
+            and seeded_bf16["confident_agreement"] >= 0.99):
+        raise AssertionError(f"bfloat16 vs float32 class maps agree on {bf16_agree}")
+    if not max(mixed_diff.values()) <= 1e-5:
+        raise AssertionError(f"mixed sizes: bucketed vs page by page {mixed_diff}")
+    if not graphs["bucket_0"] < graphs["bucket_none"] == graphs["pages"] == len(MIXED_SIZES):
+        raise AssertionError(f"mixed sizes: graphs {graphs}")
+    return out
+
+
+def _reserved_bytes() -> int:
+    """Device memory the caching allocator holds after returning what no
+    tensor or graph uses (0 on the CPU)."""
+    if DEVICE != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def serving_sweep(snap: Path, images) -> dict:
+    """One fused segmenter: a page and a batch at area 0 and at 55 (the
+    structural graphs), then the sweep 0.0 / 0.7 x 0 / 55 over every page,
+    one by one and batched: no new graph. CC labellings per page at 55
+    from the replays x the labellings each capture recorded, which must be
+    what the wrapper's count of launches gained in the sweep."""
+    from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
+
+    reserved = _reserved_bytes()
+    seg = _serving_segmenter(snap, True)
+    for area in (0, 55):
+        seg.set_hyperparams({"min_confidence": 0.7, "min_contour_area": area})
+        _serve(seg, "fused", images[:1])
+        _serve(seg, "batched", images)
+    structural = seg.page_programs()
+    # what the 4 graphs keep: their private pools (and the static buffers)
+    pool_bytes = _reserved_bytes() - reserved
+    replays_before = [p.replays for p in structural]
+    launches_before = connected_components_cuda.launches
+    for confidence in (0.0, 0.7):
+        for area in (0, 55):
+            seg.set_hyperparams({"min_confidence": confidence, "min_contour_area": area})
+            _serve(seg, "fused", images)
+            _serve(seg, "batched", images)
+    if seg.page_programs() != structural:
+        raise AssertionError(f"the sweep captured {len(seg.page_programs()) - len(structural)} "
+                             "new graphs")
+    labellings = sum((p.replays - r) * p.cc_labellings_per_replay
+                     for p, r in zip(structural, replays_before))
+    counted = connected_components_cuda.launches - launches_before
+    if counted != labellings:
+        raise AssertionError(f"the CC wrapper counted {counted} launches in the sweep's "
+                             f"replays, which ran {labellings} labellings")
+    # the sweep served each page twice (one by one, batched) at each of the
+    # two areas of 55
+    per_page = labellings / (2 * 2 * len(images))
+    single = [p for key, p in seg._programs.items()
+              if key[-2] == 1 and p.cc_labellings_per_replay]
+    out = {"graphs": len(structural), "sweep_settings": 4,
+           "cc_labellings_per_replay": [p.cc_labellings_per_replay for p in structural],
+           "replays": [p.replays for p in structural], "cc_labellings": labellings,
+           "cc_labellings_per_page": per_page,
+           "cc_labellings_per_single_page_replay": [p.cc_labellings_per_replay for p in single],
+           "graph_pool_bytes": pool_bytes}
+    _drop(seg)
+    if DEVICE == "cuda" and not per_page > 0:
+        raise AssertionError(f"no CC labelling inside the fused page graphs: {out}")
+    return out
+
+
+def serving_cli_rates(root: Path, snap: Path, pages: Path, pages_gt: Path) -> dict:
+    """The analyze CLI at 0.7 / 55, unfused and in throughput mode, over
+    each of SERVING_CLI_PAGES pages (the phase's pages again and again,
+    linked): each run's wall seconds, and the steady-state pages/s from the
+    difference of the two, which leaves out what a run pays once (loading
+    the snapshot, cuDNN's warm-up, each graph's capture)."""
+    setting = {"min_confidence": ("0.7",), "min_contour_area": ("55",)}
+    sources = sorted(pages.glob("*.png"))
+    modes = {"unfused": (), "throughput": ("--fused-page-inference", "--pages-per-batch",
+                                           str(SERVING_PAGES_PER_BATCH))}
+    out = {mode: {} for mode in modes}
+    for n in SERVING_CLI_PAGES:
+        many, many_gt = root / f"cli_pages_{n}", root / f"cli_pages_{n}_gt"
+        many.mkdir()
+        many_gt.mkdir()
+        for k in range(n):
+            source = sources[k % len(sources)]
+            (many / f"page_{k}.png").symlink_to(source)
+            (many_gt / f"page_{k}_gt.png").symlink_to(pages_gt / f"{source.stem}_gt.png")
+        for mode, extra in modes.items():
+            out[mode][f"{n}_pages_s"] = run_analyze(many, many_gt, snap, root / f"cli_{mode}_{n}",
+                                                    setting, extra=extra)
+    low, high = SERVING_CLI_PAGES
+    for times in out.values():
+        times["steady_pages_per_s"] = (high - low) / (times[f"{high}_pages_s"]
+                                                      - times[f"{low}_pages_s"])
+    return out
+
+
+def serving_phase(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict) -> dict:
+    """The serving modes on the segmenter phase's DocUFCN snapshot and
+    pages: rates, parity, the sweep, then the analyze CLI in throughput mode
+    (launch counts from 0; its confusion matrices against the unfused
+    CLI's results.json of the segmenter phase) and both CLI modes' rates
+    (`serving_cli_rates`)."""
+    import numpy as np
+    from PIL import Image
+
+    images = [Image.open(p).convert("RGB") for p in sorted(pages.glob("*.png"))]
+    rs = np.random.default_rng(SEED + 13)
+    mixed = [Image.fromarray(draw_page(rs, h, w)[0]) for w, h in MIXED_SIZES]
+    reserved_at_start = _reserved_bytes()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rates = serving_rates(snap, images)
+    parity = serving_parity(snap, images, mixed)
+    sweep = serving_sweep(snap, images)
+
+    for fn in fns.values():
+        fn.launches = 0
+    cli_s = run_analyze(pages, pages_gt, snap, root / "analyze_fused",
+                        extra=("--fused-page-inference", "--pages-per-batch",
+                               str(SERVING_PAGES_PER_BATCH)))
+    cli_launches = {name: fn.launches for name, fn in fns.items()}
+    check_results(root / "analyze_fused")
+    # the class output takes the argmax of the summed votes, the unfused
+    # path of the normalized ones (as in the JAX package): a pixel whose top
+    # two votes lie within a rounding of each other may go either way
+    fused_runs = json.loads((root / "analyze_fused" / "results.json").read_text())["runs"]
+    unfused_runs = json.loads((root / "analyze" / "results.json").read_text())["runs"]
+    differing = [sum(abs(x - y) for x, y in zip(a["confusion_matrices"][page],
+                                                b["confusion_matrices"][page])) / 2
+                 for a, b in zip(fused_runs, unfused_runs) for page in b["confusion_matrices"]]
+    if max(differing) > 1e-6 * PAGE_H * PAGE_W:
+        raise AssertionError(f"throughput CLI: pixels counted differently from the unfused "
+                             f"CLI's confusion matrices, per page and setting: {differing}")
+    cli_rates = serving_cli_rates(root, snap, pages, pages_gt)
+    memory = ({"reserved_at_start_bytes": reserved_at_start,
+               "max_reserved_bytes": torch.cuda.max_memory_reserved(),
+               "max_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "sweep_graph_pool_bytes": sweep["graph_pool_bytes"]}
+              if DEVICE == "cuda" else {})
+
+    out = {"rates": rates, "parity": parity, "sweep": sweep, "cli_seconds": cli_s,
+           "cli_page_passes": NUM_PAGES * len(SWEEP["min_confidence"])
+           * len(SWEEP["min_contour_area"]), "cli_launches": cli_launches,
+           "cli_pixels_counted_differently": differing, "cli_rates": cli_rates,
+           "memory": memory}
+    geometry = rates["geometry"]
+    log(f"serving ({PAGE_W}x{PAGE_H}, DocUFCN 32/64/128/256, patches {geometry['patch']}, "
+        f"batch {geometry['batch']}, {geometry['patches_per_page']} patches a page, vote "
+        f"assembly, 0.7 / 55, class maps to the host, {SERVING_ROUNDS} x {len(images)} pages "
+        f"warm): " + "; ".join(
+            f"{k} {v['pages_per_s']:.3f} pages/s ({v['graphs']} graphs, first pass "
+            f"{v['first_pass_s']:.3f} s)" for k, v in rates["modes"].items()))
+    for name, prof in (("fused page", rates["profile"]),
+                       (f"batched call of {len(images)} pages", rates["batch_profile"])):
+        log(f"profiled {name}: wall {prof['wall_s']:.4f} s, device busy "
+            f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+            "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
+                      for k in prof["top_kernels"]))
+    log(f"serving parity (TF32 off): fused vs unfused max abs {parity['fused_vs_unfused_max_abs']:.3g}"
+        f", class maps {parity['fused_vs_unfused_class_agreement']}; graph replay vs eager body "
+        f"max abs {parity['replay_vs_eager_max_abs']:.3g}; seeded multi-class network (shares "
+        f"{[round(v, 4) for v in parity['seeded_class_shares']]}): fused vs unfused max abs "
+        f"{parity['seeded_fused_vs_unfused_max_abs']:.3g}; bfloat16 vs float32 class maps "
+        f"(fused) {parity['bf16_vs_f32_class_agreement']}; mixed sizes {MIXED_SIZES} (W, H) "
+        f"bucketed vs page by page {parity['mixed_vs_pages_max_abs']}, graphs "
+        f"{parity['mixed_graphs']}")
+    log(f"serving sweep 0.0 / 0.7 x 0 / 55: {sweep['graphs']} structural graphs, none new; "
+        f"CC labellings {sweep['cc_labellings']} through replays = "
+        f"{sweep['cc_labellings_per_page']:.2f} per page at area 55 (per replay "
+        f"{sweep['cc_labellings_per_replay']}, replays {sweep['replays']})")
+    log(f"analyze CLI in throughput mode (--fused-page-inference --pages-per-batch "
+        f"{SERVING_PAGES_PER_BATCH}): {out['cli_page_passes']} page passes in {cli_s:.3f} s; "
+        f"pixels its confusion matrices count differently from the unfused CLI's, per page "
+        f"and setting: {differing}; launches (eager warm-ups and graph replays) "
+        f"{cli_launches}; memory {memory}")
+    low, high = SERVING_CLI_PAGES
+    log(f"analyze CLI at 0.7 / 55 over {low} and {high} pages: " + "; ".join(
+        f"{mode} {t[f'{low}_pages_s']:.3f} s and {t[f'{high}_pages_s']:.3f} s, steady state "
+        f"{t['steady_pages_per_s']:.3f} pages/s" for mode, t in cli_rates.items()))
     return out
 
 
@@ -2431,6 +2929,35 @@ def fid_card_vs_cpu(fixture: Path, snapshot: Path) -> dict:
             "fid_rel_diff": abs(distance[DEVICE] - distance["cpu"]) / abs(distance["cpu"])}
 
 
+def gan_loader_epochs(fixture: Path, config: Path, epochs: int = 3) -> dict:
+    """A GAN leg's training loader alone over the fixture (the leg's batch
+    and workers, kept across epochs, as the CLI builds it): per epoch, the
+    seconds to its first batch and to its end."""
+    from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import GANImageDataset
+    from synthesis_in_style_tpu_torch.data.loader import make_loader, shutdown_workers
+
+    cfg = json.loads(config.read_text())
+    dataset = GANImageDataset(fixture / "train.json", root=fixture,
+                              image_size=cfg["image_size"], num_channels=cfg.get("input_dim", 3))
+    loader = make_loader(dataset, int(cfg["batch_size"]), shuffle=True, drop_last=True,
+                         num_workers=int(cfg.get("num_workers", 8)), pin_memory=DEVICE == "cuda")
+    first, whole = [], []
+    try:
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            batches = iter(loader)
+            next(batches)
+            first.append(time.perf_counter() - t0)
+            for _ in batches:
+                pass
+            whole.append(time.perf_counter() - t0)
+    finally:
+        shutdown_workers(loader)
+    return {"batches_per_epoch": len(loader), "workers": loader.num_workers,
+            "first_batch_s": first, "epoch_s": whole,
+            "images_per_s": [len(loader) * loader.batch_size / t for t in whole]}
+
+
 def capstone_phase(root: Path, fns: dict) -> dict:
     """The capstone recipe's legs at the recipe's widths, cut in iterations
     and sample counts (CAPSTONE_*_CUTS): the fixture; the 128px GAN with
@@ -2451,6 +2978,12 @@ def capstone_phase(root: Path, fns: dict) -> dict:
     # 128px: attempt 1 dies after its iteration-20 snapshot, attempt 2 resumes
     config_128 = capstone_config(root, CAPSTONE_128, CAPSTONE_128_CUTS, "capstone_128")
     batch = int(json.loads(config_128.read_text())["batch_size"])
+    loader_128 = gan_loader_epochs(fixture, config_128)
+    log(f"capstone 128px leg's loader alone ({loader_128['workers']} workers kept, "
+        f"{loader_128['batches_per_epoch']} batches an epoch): epochs' first batches "
+        + ", ".join(f"{t:.3f}" for t in loader_128["first_batch_s"]) + " s, epochs "
+        + ", ".join(f"{t:.3f}" for t in loader_128["epoch_s"]) + " s = "
+        + ", ".join(f"{r:.2f}" for r in loader_128["images_per_s"]) + " images/s")
     for fn in fns.values():
         fn.launches = 0
     with _TrainerRecorder(interrupt_at=CAPSTONE_INTERRUPT) as rec_128:
@@ -2523,6 +3056,7 @@ def capstone_phase(root: Path, fns: dict) -> dict:
     chain_launches = {name: sum(leg[name] for leg in chain["launches_by_leg"].values())
                       for name in fns}
     return {"fixture_s": fixture_s, "gan_128": leg_128, "launches_128": launches_128,
+            "loader_128": loader_128,
             "gan_256": leg_256, "launches_256": launches_256, "gan_256_cli_s": leg_256_s,
             "warm_start": warm, "chain": chain, "chain_launches": chain_launches,
             "fid_card_vs_cpu": fid_check}
@@ -2592,9 +3126,16 @@ def main() -> int:
         path = drive_path(run, root / "generated_images")
         dataset_launches = {name: fn.launches for name, fn in fns.items()}
         n = check_outputs(root / "generated_images")
+        with _one_png_thread():
+            path_1thread = drive_path(run, root / "generated_images_1thread")
         stages = stage_times(run, root / "stages")
         log(f"per batch of {BATCH}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in stages.items() if k != "batch"))
+        log(f"dataset path PNG writing: {stages['png_s']:.4f} s a batch over "
+            f"{stages['png_threads']} threads against {stages['png_1thread_s']:.4f} s in one; "
+            f"labelled images/s {path['written'] / path['seconds']:.2f} against "
+            f"{path_1thread['written'] / path_1thread['seconds']:.2f} with the one-thread "
+            "writer (build_dataset wall time, warm)")
         host_route = host_route_phase(run, root, fns)
 
         pages = write_training_pages(root)
@@ -2614,6 +3155,9 @@ def main() -> int:
         # the segmenter path on the dataset path's PNG pairs
         segmenter = segmenter_phase(root, root / "generated_images", fns,
                                     detail["segmented_cc"])
+        # whole-page serving on that phase's snapshot and pages
+        serving = serving_phase(root, Path(segmenter["snapshot"]), Path(segmenter["pages"]),
+                                Path(segmenter["pages_gt"]), fns)
         # the capstone recipe's legs: fixture, 128px GAN (resumed), 256px
         # GAN (warm-started), the five-leg chain
         capstone = capstone_phase(root, fns)
@@ -2631,6 +3175,7 @@ def main() -> int:
             ("training", training_launches, ("fused_bias_act", "fused_bias_act_bwd",
                                              "fused_blur")),
             ("page_inference", segmenter["page_launches"], ("segmented_cc",)),
+            ("page_serving", serving["cli_launches"], ("segmented_cc",)),
             ("capstone_gan_128", capstone["launches_128"], ("fused_bias_act",
                                                              "fused_bias_act_bwd", "fused_blur")),
             ("capstone_gan_256", capstone["launches_256"], ("fused_bias_act",
@@ -2683,6 +3228,7 @@ def main() -> int:
                    "page_inference": segmenter["page_launches"][name],
                    "dataset_host": host_route["launches"][name],
                    "page_host_filter": segmenter["host_filter_launches"][name],
+                   "page_serving": serving["cli_launches"][name],
                    "capstone_gan_128": capstone["launches_128"][name],
                    "capstone_gan_256": capstone["launches_256"][name],
                    "capstone_chain": capstone["chain_launches"][name]}
@@ -2707,9 +3253,11 @@ def main() -> int:
         cli.detail.parent.mkdir(parents=True, exist_ok=True)
         cli.detail.write_text(json.dumps(
             {"card": smi, "kernels": rows, "detail": detail,
-             "path": {**path, "launches": dataset_launches, "stages": stages},
+             "path": {**path, "launches": dataset_launches, "stages": stages,
+                      "one_thread_png": path_1thread},
              "host_route": host_route, "discovery": discovery,
-             "training": training, "segmenter": segmenter, "capstone": capstone},
+             "training": training, "segmenter": segmenter, "serving": serving,
+             "capstone": capstone},
             indent=1, default=str))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

@@ -16,14 +16,23 @@ the JAX CLI's images: `<stem>_<config>_segmentation.png` (with
 (`--overlay-segmentation`), `_bboxes.png` (`--extract-bboxes`, `-b`, `-c`)
 and the `_bbox_NNNN.png` / `_contour_NNNN.png` crops (`-b`, `-c`).
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md):
-`--fused-page-inference`, `--pages-per-batch`, `--bucket-quantum`,
-`--quantize` and `--serving-dtype bfloat16`.
+`--fused-page-inference` runs each page as one page program (a CUDA graph
+per page tiling on the card; the device component filter whenever the area
+is above 0). With it, `--pages-per-batch N` (N > 1, no `-vis`) is
+throughput mode: pages load in chunks of 4N and are segmented N to a graph
+replay, pages of other sizes padded to a bucket of `--bucket-quantum`
+pixels (0: the patch size; negative: exact tilings only).
+`--serving-dtype bfloat16` runs the network in bfloat16. The config file's
+`fused_page_inference`, `pages_per_batch` and `serving_dtype` keys set the
+same.
+
+Not ported yet (raises NotImplementedError, see ROADMAP.md): `--quantize`.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.analyze_image_segments <image_dir> \\
       -f eval_config.json -gt gt_dir -o out -cds -cio --min-confidence 0.5 0.7 \\
-      --min-contour-area 0 55 [--use-device-component-filter] [-vis ...] [-d cuda]
+      --min-contour-area 0 55 [--use-device-component-filter] [-vis ...] [-d cuda] \\
+      [--fused-page-inference --pages-per-batch 4] [--serving-dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -58,20 +67,15 @@ from synthesis_in_style_tpu_torch.visualization.utils import network_output_to_c
 
 # flags (argparse dest, or model-config key) that this port does not serve yet
 NOT_PORTED_FLAGS = {
-    "fused_page_inference": "--fused-page-inference",
-    "pages_per_batch": "--pages-per-batch",
-    "bucket_quantum": "--bucket-quantum",
     "quantize": "--quantize",
-    "serving_dtype": "--serving-dtype",
 }
 
 
 def check_supported(args: argparse.Namespace, model_config: dict) -> None:
     for key, flag in NOT_PORTED_FLAGS.items():
-        value = getattr(args, key, None) or model_config.get(key)
-        if value and not (key == "serving_dtype" and value in ("float32", "f32")):
-            raise NotImplementedError(
-                f"{flag} is not ported to synthesis_in_style_tpu_torch yet (see ROADMAP.md)")
+        if getattr(args, key, None) or model_config.get(key):
+            raise NotImplementedError(f"{flag} is not ported to synthesis_in_style_tpu_torch "
+                                      f"yet (see ROADMAP.md, Queue 1 item 10)")
 
 
 def create_hyperparam_configs(args) -> tuple:
@@ -191,6 +195,10 @@ def main(args: argparse.Namespace) -> None:
 
     with open(args.config_file) as f:
         model_config = json.load(f)
+    serving_dtype = args.serving_dtype or model_config.get("serving_dtype")
+    if serving_dtype not in (None, "float32", "f32") and (
+            args.quantize or model_config.get("quantize")):
+        raise ValueError("--serving-dtype and --quantize are mutually exclusive")
     check_supported(args, model_config)
     segmenter = VotingAssemblySegmenter(
         model_config["checkpoint"],
@@ -199,6 +207,9 @@ def main(args: argparse.Namespace) -> None:
         max_image_size=int(model_config.get("max_image_size", 0)) or None,
         use_device_component_filter=(args.use_device_component_filter or bool(
             model_config.get("use_device_component_filter", False))),
+        fused_page_inference=(args.fused_page_inference
+                              or bool(model_config.get("fused_page_inference", False))),
+        serving_dtype=serving_dtype,
         device=args.device,
     )
     class_to_color_map = segmenter.class_to_color_map
@@ -226,6 +237,9 @@ def main(args: argparse.Namespace) -> None:
 
     image_paths = [f for f in args.image_dir.glob("**/*") if is_image(f)]
     assert len(image_paths) > 0, "There are no images in the given directory."
+    pages_per_batch = args.pages_per_batch or int(model_config.get("pages_per_batch", 0))
+    throughput = (pages_per_batch > 1 and not args.visualize_segmentation
+                  and segmenter.fused_page_inference)
 
     def load_one(image_path: Path) -> Optional["Image.Image"]:
         try:
@@ -239,20 +253,38 @@ def main(args: argparse.Namespace) -> None:
             image = image.convert("L")
         return image
 
+    def segmented_pages():
+        """(path, image, class map, assembled confidences with -vis) of each
+        page. Throughput mode loads 4 x pages_per_batch pages at a time (the
+        host keeps no more) and segments them pages_per_batch to a replay."""
+        if throughput:
+            chunk_size = 4 * pages_per_batch
+            bucket_quantum = None if args.bucket_quantum < 0 else args.bucket_quantum
+            for start in range(0, len(image_paths), chunk_size):
+                chunk = [(path, image) for path in image_paths[start: start + chunk_size]
+                         for image in (load_one(path),) if image is not None]
+                predictions = segmenter.segment_images(
+                    [image for _, image in chunk], pages_per_batch, output="classes",
+                    bucket_quantum=bucket_quantum)
+                for (path, image), predicted in zip(chunk, predictions):
+                    yield path, image, predicted, None
+            return
+        for path in image_paths:
+            image = load_one(path)
+            if image is None:
+                continue
+            if args.visualize_segmentation:
+                assembled = segmenter.segment_image(image)
+                yield path, image, np.argmax(assembled, axis=-1), assembled
+            else:
+                yield path, image, segmenter.segment_image_classes(image), None
+
     for hyperparam_config in hyperparam_configs:
         segmenter.set_hyperparams(hyperparam_config)
         if evaluate:
             results["runs"].append(defaultdict(dict))
         global_confusion_matrix = np.zeros((num_classes, num_classes))
-        for image_path in image_paths:
-            image = load_one(image_path)
-            if image is None:
-                continue
-            if args.visualize_segmentation:
-                assembled_prediction = segmenter.segment_image(image)
-                predicted = np.argmax(assembled_prediction, axis=-1)
-            else:
-                predicted = segmenter.segment_image_classes(image)
+        for image_path, image, predicted, assembled_prediction in segmented_pages():
             if args.visualize_segmentation:
                 prefix = f"{image_path.stem}_{get_string_representation_of_config(hyperparam_config)}"
                 try:
@@ -324,19 +356,29 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-c", "--save-contours", action="store_true", default=False)
     parser.add_argument("--show-confidence", action="store_true", default=False)
     parser.add_argument("--overlay-segmentation", action="store_true", default=False)
-    for flag in ("--fused-page-inference", "--quantize"):
-        parser.add_argument(flag, action="store_true", default=False,
-                            help="not ported yet: raises NotImplementedError")
+    parser.add_argument("--fused-page-inference", action="store_true", default=False,
+                        help="Run each page as one page program (a CUDA graph per page "
+                        "tiling on the card: patch cutting, forward, device component "
+                        "filter, voting assembly). Implies the device component filter.")
+    parser.add_argument("--quantize", action="store_true", default=False,
+                        help="not ported yet: raises NotImplementedError")
     parser.add_argument("--use-device-component-filter", action="store_true", default=False,
                         help="Run the small-component postprocess on the device "
                         "(union-find connected components) instead of the host "
                         "contour filter. Pixel-area semantics.")
     parser.add_argument("--pages-per-batch", type=int, default=0,
-                        help="not ported yet: raises NotImplementedError")
+                        help="Throughput mode (with --fused-page-inference, ignored with "
+                        "-vis): N pages to one graph replay, class maps argmaxed on the "
+                        "device. Pages of different sizes batch together (see "
+                        "--bucket-quantum).")
     parser.add_argument("--bucket-quantum", type=int, default=0,
-                        help="not ported yet: raises NotImplementedError")
+                        help="Canvas-size quantum (px) for batching pages of different "
+                        "sizes into one page program; 0 = the patch size, negative = exact "
+                        "tilings only. Each page's result equals its own tiling's.")
     parser.add_argument("--serving-dtype", default=None, choices=["float32", "bfloat16"],
-                        help="bfloat16 is not ported yet: raises NotImplementedError")
+                        help="Compute dtype of the network (default float32); bfloat16 "
+                        "casts its parameters and BatchNorm statistics once. Mutually "
+                        "exclusive with --quantize.")
     parser.add_argument("-d", "--device", default="cuda",
                         help="torch device to run the segmenter on (default cuda)")
     return parser

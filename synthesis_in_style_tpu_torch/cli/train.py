@@ -42,7 +42,7 @@ from synthesis_in_style_tpu_torch.core.config import (
 from synthesis_in_style_tpu_torch.core.extensions import LogWriter, LRReporter
 from synthesis_in_style_tpu_torch.core.trainer import Trainer
 from synthesis_in_style_tpu_torch.data.json_dataset import CachingLoader, resilient_loader
-from synthesis_in_style_tpu_torch.data.loader import make_loader
+from synthesis_in_style_tpu_torch.data.loader import make_loader, shutdown_workers
 from synthesis_in_style_tpu_torch.data.segmentation_dataset import AugmentedSegmentationDataset
 from synthesis_in_style_tpu_torch.training_builder import get_train_builder_class
 from synthesis_in_style_tpu_torch.utils.checkpoint import snapshot_iteration
@@ -149,6 +149,8 @@ def main(args: argparse.Namespace) -> Trainer:
             trainer.train()
     finally:
         updater.iterators["images"].close()
+        if val_loader is not None:
+            shutdown_workers(val_loader)
     return trainer
 
 

@@ -1,6 +1,13 @@
 """The endless batch stream the trainer reads (counterpart of `EpochStream`
 in synthesis_in_style_tpu/data/loader.py), over a torch DataLoader, with the
-fractional epoch the `(N, "epoch")` triggers need."""
+fractional epoch the `(N, "epoch")` triggers need.
+
+`make_loader` keeps its worker processes for the whole run
+(`persistent_workers`): an epoch or a validation pass starts none, as the
+JAX package's thread-pool loader starts none. The sampler is still iterated
+in this process at every pass, so the order and `seek` are unchanged; the
+datasets keep no state that changes between epochs (workers would not see
+it). `shutdown_workers` ends them."""
 
 from __future__ import annotations
 
@@ -10,10 +17,22 @@ import numpy as np
 from torch.utils.data import DataLoader, Sampler
 
 
+def shutdown_workers(loader: DataLoader) -> None:
+    """End a loader's kept worker processes (a no-op without workers); the
+    next pass starts new ones."""
+    iterator = getattr(loader, "_iterator", None)
+    if iterator is not None:
+        loader._iterator = None
+        shutdown = getattr(iterator, "_shutdown_workers", None)
+        if shutdown is not None:
+            shutdown()
+
+
 class EpochStream:
-    """Endless batch stream over a DataLoader (one loader iterator, and so
-    one set of worker processes, per epoch); `key` selects one entry of each
-    batch dict. `close()` ends the current epoch's workers."""
+    """Endless batch stream over a DataLoader (a pass per epoch; with
+    `make_loader`'s persistent workers, one set of worker processes for all
+    of them); `key` selects one entry of each batch dict. `close()` ends the
+    workers."""
 
     def __init__(self, loader: DataLoader, key: Optional[str] = None):
         self._loader = loader
@@ -53,8 +72,8 @@ class EpochStream:
         self._epochs_done, self._batches_into_epoch = epoch, into
 
     def close(self) -> None:
-        # dropping the epoch's iterator shuts its worker processes down
         self._iterator = None
+        shutdown_workers(self._loader)
 
 
 class EpochShuffleSampler(Sampler):
@@ -89,9 +108,10 @@ class EpochShuffleSampler(Sampler):
 def make_loader(dataset, batch_size: int, shuffle: bool, drop_last: bool, num_workers: int,
                 seed: int = 0, pin_memory: bool = False) -> DataLoader:
     """A torch DataLoader in the JAX DataLoader's sample order (shuffled
-    per epoch from `seed`, or in order) with its `drop_last`. Validation
-    loaders are unsharded: the port trains in one process."""
+    per epoch from `seed`, or in order) with its `drop_last`, whose worker
+    processes (if any) live until `shutdown_workers` or the loader's end.
+    Validation loaders are unsharded: the port trains in one process."""
     return DataLoader(dataset, batch_size=batch_size, drop_last=drop_last,
                       sampler=EpochShuffleSampler(len(dataset), seed, shuffle),
                       num_workers=num_workers, pin_memory=pin_memory,
-                      persistent_workers=False)
+                      persistent_workers=num_workers > 0)

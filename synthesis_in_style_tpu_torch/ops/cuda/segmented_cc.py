@@ -86,9 +86,15 @@ def connected_components_cuda(mask: torch.Tensor, connectivity: int = 4) -> torc
     err = fn(mask_u8.data_ptr(), labels.data_ptr(), b, h, w, connectivity,
              torch.cuda.current_stream(mask.device).cuda_stream)
     build.check(err, "sis_cc_union_find")
-    connected_components_cuda.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        # recorded into a CUDA graph, not launched: whoever replays the
+        # graph counts the launches (PageProgram.run)
+        connected_components_cuda.captured += 1
+    else:
+        connected_components_cuda.launches += 1
     return labels
 
 
-# one count per labelling (three kernels)
+# one count per labelling (three kernels): launched, and recorded into graphs
 connected_components_cuda.launches = 0
+connected_components_cuda.captured = 0

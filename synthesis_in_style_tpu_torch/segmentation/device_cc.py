@@ -186,9 +186,15 @@ def binary_closing(mask: torch.Tensor, size: int = 5) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
-def filter_small_components(mask: torch.Tensor, min_area: float) -> torch.Tensor:
-    """Zero out 4-connected components with pixel area < min_area."""
-    if min_area <= 0:
+def filter_small_components(mask: torch.Tensor, min_area) -> torch.Tensor:
+    """Zero out 4-connected components with pixel area < min_area.
+
+    `min_area` is a number or a 0-d tensor on the mask's device. A number
+    <= 0 returns the mask untouched; a tensor is never read on the host (a
+    value <= 0 keeps every component, as every area is >= 1), so a page
+    program that takes it stays free of host syncs and its value can
+    change between replays."""
+    if isinstance(min_area, (int, float)) and min_area <= 0:
         return mask
     squeeze = mask.ndim == 2
     if squeeze:

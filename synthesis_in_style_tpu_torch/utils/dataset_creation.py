@@ -7,7 +7,8 @@ synthesis_in_style_tpu/utils/dataset_creation.py).
 * `make_generate_fn`: z -> (activations, uint8 images on the device),
   truncation 0.7 when a mean latent is given, fixed noise buffers.
 * `save_generated_images`: side-by-side [image|label] PNGs in the sharded
-  layout, written with the stdlib PNG encoder.
+  layout, a batch encoded and written over a thread pool
+  (`utils/png.write_png_batch`).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from synthesis_in_style_tpu_torch.utils.png import write_png
+from synthesis_in_style_tpu_torch.utils.png import write_png_batch
 
 
 def get_root_dir_of_checkpoint(checkpoint_file: Union[str, Path]) -> Path:
@@ -109,9 +110,10 @@ def save_generated_images(
     base_dir: Path,
     num_images: int,
 ) -> None:
-    """Side-by-side [image|label] PNGs named by zero-padded image id."""
+    """Side-by-side [image|label] PNGs named by zero-padded image id, the
+    batch written by one thread per CPU core."""
     images = np.concatenate([generated_images, semantic_segmentation_images], axis=2)
     digits = max(4, len(str(num_images)))
-    for idx, image in enumerate(images):
-        image_id = batch_id + idx
-        write_png(sharded_image_path(image_id, base_dir, f"{image_id:0{digits}d}.png"), image)
+    paths = [sharded_image_path(batch_id + idx, base_dir, f"{batch_id + idx:0{digits}d}.png")
+             for idx in range(len(images))]
+    write_png_batch(images, paths)

@@ -1,16 +1,21 @@
 """Minimal PNG codec on the standard library's zlib: 8-bit RGB, filter 0.
 
 `write_png` writes what the dataset CLI needs (an (H, W, 3) uint8 image);
-`read_png` reads back files of that form (8-bit RGB, non-interlaced, every
-scanline with filter type 0) and raises on anything else.
+`write_png_batch` writes a batch of them over a thread pool (the
+counterpart of the JAX package's native/fast_png.cpp: zlib releases the
+GIL while it compresses, so the encodes run in parallel); `read_png` reads
+back files of that form (8-bit RGB, non-interlaced, every scanline with
+filter type 0) and raises on anything else.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Union
+from typing import Sequence, Union
 
 import numpy as np
 
@@ -42,8 +47,23 @@ def encode_png(image: np.ndarray, level: int = 6) -> bytes:
     )
 
 
-def write_png(path: Union[str, Path], image: np.ndarray) -> None:
-    Path(path).write_bytes(encode_png(image))
+def write_png(path: Union[str, Path], image: np.ndarray, level: int = 6) -> None:
+    Path(path).write_bytes(encode_png(image, level))
+
+
+def write_png_batch(images: np.ndarray, paths: Sequence[Union[str, Path]],
+                    compression: int = 6, num_threads: int = 0) -> None:
+    """Write (N, H, W, 3) uint8 `images` to `paths` (one each), encoded and
+    written by `num_threads` threads (0: os.cpu_count()). Each file holds
+    the bytes `encode_png(image, compression)` gives. Raises on a length
+    mismatch and re-raises any writer's error."""
+    if len(images) != len(paths):
+        raise ValueError(f"write_png_batch: {len(images)} images for {len(paths)} paths")
+    workers = min(num_threads or os.cpu_count() or 1, max(1, len(paths)))
+    with ThreadPoolExecutor(workers) as pool:
+        for done in [pool.submit(write_png, path, image, compression)
+                     for image, path in zip(images, paths)]:
+            done.result()
 
 
 def decode_png(data: bytes) -> np.ndarray:

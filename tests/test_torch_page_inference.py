@@ -121,8 +121,7 @@ def test_area_filter_without_device_filter_raises():
     assert np.abs(ref.segment_image(page) - want).max() > 0.1  # the filter removed regions
 
 
-@pytest.mark.parametrize("kwargs", [dict(fused_page_inference=True), dict(quantized=True),
-                                    dict(serving_dtype="bfloat16"), dict(mesh=object())])
+@pytest.mark.parametrize("kwargs", [dict(quantized=True), dict(mesh=object())])
 def test_not_ported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         seg.AnalysisSegmenter(None, COLORS, config=dict(CONFIG), device="cpu", **kwargs)

@@ -5,8 +5,10 @@ continues from it; `analyze_image_segments` loads the snapshot and sweeps
 two pages with the device component filter. Its `results.json` matches the
 JAX CLI's, run on the same weights (converted with `torch_doc_ufcn_to_flax`
 into an orbax snapshot) and pages, within 1e-3 per score (argmax near-ties
-may flip a pixel). Without the device filter an area above 0 runs the host
-contour filter. Options that are not ported raise."""
+may flip a pixel); so does throughput mode's (`--fused-page-inference
+--pages-per-batch 2`) against the JAX CLI's throughput mode. Without the
+device filter an area above 0 runs the host contour filter. Options that
+are not ported raise."""
 
 import json
 from pathlib import Path
@@ -131,25 +133,23 @@ def test_fine_tune_loads_the_network(trained):
         assert torch.equal(value, want[name]), name
 
 
-def test_analyze_results_match_the_jax_cli(trained):
-    root, _ = trained
+def _jax_snapshot(root: Path) -> Path:
+    """The trained weights as an orbax snapshot of the JAX package."""
     run = root / "logs" / "run"
-    snapshot = run / "checkpoints" / "iter_00000003.pt"
-    analyze.main(analyze.parse_and_check_arguments(
-        _analyze_argv(root, snapshot, "port", "-d", "cpu")))
-    ours = json.loads((root / "port" / "results.json").read_text())
-
-    # the same weights as an orbax snapshot of the JAX package
     jax_run = root / "jax_run"
-    (jax_run / "config").mkdir(parents=True)
-    (jax_run / "config" / "config.json").write_text((run / "config" / "config.json").read_text())
-    state = load_segmenter_snapshot(snapshot)["segmentation_network"]
-    variables = torch_doc_ufcn_to_flax({k: v.numpy() for k, v in state.items()})
-    save_pytree(jax_run / "checkpoints" / "iter_00000003", {"segmentation_network": variables})
-    jax_analyze.main(jax_analyze.build_parser().parse_args(
-        _analyze_argv(root, jax_run / "checkpoints" / "iter_00000003", "jax")))
-    ref = json.loads((root / "jax" / "results.json").read_text())
+    if not jax_run.exists():
+        (jax_run / "config").mkdir(parents=True)
+        (jax_run / "config" / "config.json").write_text(
+            (run / "config" / "config.json").read_text())
+        state = load_segmenter_snapshot(
+            run / "checkpoints" / "iter_00000003.pt")["segmentation_network"]
+        variables = torch_doc_ufcn_to_flax({k: v.numpy() for k, v in state.items()})
+        save_pytree(jax_run / "checkpoints" / "iter_00000003",
+                    {"segmentation_network": variables})
+    return jax_run / "checkpoints" / "iter_00000003"
 
+
+def _assert_results_match(ours: dict, ref: dict) -> None:
     assert len(ours["runs"]) == len(ref["runs"]) == 4
     compared = 0
     for mine, theirs in zip(ours["runs"], ref["runs"]):
@@ -168,15 +168,67 @@ def test_analyze_results_match_the_jax_cli(trained):
     assert compared == 4 * 4 * 5 * 3
 
 
-@pytest.mark.parametrize("extra", [["--fused-page-inference"], ["--quantize"],
-                                   ["--serving-dtype", "bfloat16"], ["--pages-per-batch", "4"],
-                                   ["--bucket-quantum", "8"], ["-vis", "--quantize"]])
+def test_analyze_results_match_the_jax_cli(trained):
+    root, _ = trained
+    snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
+    analyze.main(analyze.parse_and_check_arguments(
+        _analyze_argv(root, snapshot, "port", "-d", "cpu")))
+    jax_analyze.main(jax_analyze.build_parser().parse_args(
+        _analyze_argv(root, _jax_snapshot(root), "jax")))
+    _assert_results_match(json.loads((root / "port" / "results.json").read_text()),
+                          json.loads((root / "jax" / "results.json").read_text()))
+
+
+@pytest.mark.parametrize("bucket_quantum", ["0", "-1"])
+def test_throughput_mode_matches_the_jax_cli(trained, bucket_quantum):
+    """Fused pages, 2 to a program replay, class maps argmaxed on the
+    device, in both CLIs; and the port's equals its own page-by-page run."""
+    root, _ = trained
+    snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
+    flags = ("--fused-page-inference", "--pages-per-batch", "2",
+             "--bucket-quantum", bucket_quantum)
+    out = f"port_fused_{bucket_quantum}"
+    analyze.main(analyze.parse_and_check_arguments(
+        _analyze_argv(root, snapshot, out, "-d", "cpu", *flags)))
+    ours = json.loads((root / out / "results.json").read_text())
+    jax_out = f"jax_fused_{bucket_quantum}"
+    jax_analyze.main(jax_analyze.build_parser().parse_args(
+        _analyze_argv(root, _jax_snapshot(root), jax_out, *flags)))
+    _assert_results_match(ours, json.loads((root / jax_out / "results.json").read_text()))
+    single = f"port_pages_{bucket_quantum}"
+    analyze.main(analyze.parse_and_check_arguments(
+        _analyze_argv(root, snapshot, single, "-d", "cpu", "--fused-page-inference")))
+    assert json.loads((root / single / "results.json").read_text())["runs"] == ours["runs"]
+
+
+@pytest.mark.parametrize("extra", [["--quantize"], ["-vis", "--quantize"]])
 def test_analyze_not_ported_flags_raise(trained, extra):
     root, _ = trained
     snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
     args = analyze.parse_and_check_arguments(_analyze_argv(root, snapshot, "x", "-d", "cpu", *extra))
     with pytest.raises(NotImplementedError):
         analyze.main(args)
+
+
+def test_analyze_serving_dtype_with_quantize_raises(trained):
+    root, _ = trained
+    snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
+    args = analyze.parse_and_check_arguments(_analyze_argv(
+        root, snapshot, "x", "-d", "cpu", "--serving-dtype", "bfloat16", "--quantize"))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        analyze.main(args)
+
+
+def test_analyze_bfloat16_serving_runs(trained):
+    """--serving-dtype bfloat16, fused and page by page: the sweep's four
+    runs, each page scored (agreement with float32: test_torch_serving_dtype.py)."""
+    root, _ = trained
+    snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
+    analyze.main(analyze.parse_and_check_arguments(_analyze_argv(
+        root, snapshot, "bf16", "-d", "cpu", "--serving-dtype", "bfloat16",
+        "--fused-page-inference", "--pages-per-batch", "2")))
+    runs = json.loads((root / "bf16" / "results.json").read_text())["runs"]
+    assert len(runs) == 4 and all(len(run["confusion_matrices"]) == 2 for run in runs)
 
 
 def test_area_filter_needs_the_device_filter(trained, monkeypatch):
