@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py [--detail PATH]
 
-1. Builds the three hand-written kernel libraries from
+1. Builds the four hand-written kernel libraries from
    synthesis_in_style_tpu_torch/csrc (nvcc, one process per source, all
    started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -143,8 +143,35 @@
    0 with its seconds and best_dice finite in [0, 1]; the fallback FID
    embedding's features card vs CPU with TF32 off (within 1e-4 relative)
    and one Frechet distance on each.
-   Steps 5, 7 to 10 and the GAN legs of 11 run with PyTorch's defaults (TF32
-   cuDNN convolutions, float32 matmuls).
+12. TransUNet (configs/segmenter/stylegan2_trans_u_net_segmenter.yaml:
+   R50-ViT-B_16 at 512px, 12 blocks of 12 heads over 1024 tokens, batch 8,
+   bfloat16, SGD). Before the other phases, with TF32 off: the flash
+   attention kernels (csrc/flash_attention.cu) against their plain version at
+   (8, 12, 1024, 64) (every training step and page batch; a short last batch
+   of patches is padded to the batch), (4, 12, 1024, 64), (2, 2, 256, 8),
+   (1, 16, 128, 80) and (2, 12, 128, 64), float32 and bfloat16, gradients
+   through the autograd Function (float32 within 1e-5 / 1e-4 of max|ref|,
+   bfloat16 within 2^-7), timed at the main shape beside the plain version,
+   the bound and scaled_dot_product_attention. After the serving phase: the
+   full-width network at 512px, batch 2, float32, TF32 off, on the card
+   (flash) and on the CPU (plain), both against float64 on the card (eval
+   logits within 1e-4; one step's gradients no further from float64 on the
+   card than twice the CPU's); the training CLI on the shipped config with
+   `attention_impl: flash` over step 7's pairs (2-iteration warm-up, then 16
+   iterations and one validation pass with launch counts from 0: finite
+   losses, weights moved, forward launches = 12 x forward passes, backward
+   launches = 12 x iterations), then the same with the shipped config as it
+   is (xla, no flash launch), images/s of both; then
+   `analyze_image_segments --use-device-component-filter` with the flash
+   snapshot over step 9's 2048x1536 pages at 0.7 / 55 (512px patches; flash
+   launches = 12 x forward passes, CC launched) and the segmenter's pages/s;
+   then fused page inference against unfused with TF32 off (within 1e-5;
+   flash launches = (replays + 2 warm-ups) x launches a replay), pages/s
+   fused in float32 and bfloat16, bfloat16 class maps >= 0.99 of float32's.
+   The training runs also time the step alone on a batch on the card (10
+   steps, then one under torch.profiler).
+   Steps 5, 7 to 10, the GAN legs of 11 and the training and pages of 12 run
+   with PyTorch's defaults (TF32 cuDNN convolutions, float32 matmuls).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
@@ -832,11 +859,12 @@ def counters():
     from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act_cuda
     from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
 
-    # segmented_cc counts labellings (one fixpoint each), not kernel launches
+    # segmented_cc counts labellings (one fixpoint each), not kernel launches;
+    # flash_attention_bwd counts backward calls (three kernels each)
     return {"fused_bias_act": fused_leaky_relu_cuda,
             "fused_bias_act_bwd": fused_leaky_relu_bwd_cuda,
             "fused_blur": blur_demod_noise_bias_act_cuda,
-            "segmented_cc": connected_components_cuda}
+            "segmented_cc": connected_components_cuda, **flash_counters()}
 
 
 def reference_check(run: Path) -> torch.Tensor:
@@ -1332,7 +1360,9 @@ def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
 
 
 PORT_KERNELS = ("bias_act_fwd_kernel", "bias_act_bwd_kernel", "blur_tail_kernel",
-                "cc_local_kernel", "cc_boundary_kernel", "cc_flatten_kernel")
+                "cc_local_kernel", "cc_boundary_kernel", "cc_flatten_kernel",
+                "flash_fwd_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel")
 
 
 def profile_call(fn, top: int = 12) -> dict:
@@ -2652,8 +2682,12 @@ from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import (
     fused_leaky_relu_bwd_cuda, fused_leaky_relu_cuda)
 from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act_cuda
 from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
+from synthesis_in_style_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention_bwd_cuda, flash_attention_fwd_cuda)
 fns = {"fused_bias_act": fused_leaky_relu_cuda, "fused_bias_act_bwd": fused_leaky_relu_bwd_cuda,
-       "fused_blur": blur_demod_noise_bias_act_cuda, "segmented_cc": connected_components_cuda}
+       "fused_blur": blur_demod_noise_bias_act_cuda, "segmented_cc": connected_components_cuda,
+       "flash_attention_fwd": flash_attention_fwd_cuda,
+       "flash_attention_bwd": flash_attention_bwd_cuda}
 assert sys.argv[1] == "-m"
 module = sys.argv[2]
 out = os.path.join(os.environ["SIS_LAUNCH_COUNTS_DIR"], f"{module}.{os.getpid()}.json")
@@ -3062,6 +3096,523 @@ def capstone_phase(root: Path, fns: dict) -> dict:
             "fid_card_vs_cpu": fid_check}
 
 
+# ---------------------------------------------------------------------------
+# TransUNet: the flash attention kernels, the full-width network card vs CPU,
+# training through the CLI with attention_impl flash and xla, page inference
+
+BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense
+TU_CONFIG = REPO_ROOT / "configs" / "segmenter" / "stylegan2_trans_u_net_segmenter.yaml"
+TU_OVERRIDES = {"max_iter": 16, "snapshot_save_iter": 16, "log_iter": 8}
+TU_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}
+TU_CHECK_SIZE = 512  # the card-vs-CPU network's image size (1024 tokens)
+TU_CHECK_BATCH = 2
+# (B, heads, N, d): the shipped R50-ViT-B_16 at 512px (training and every
+# page batch: a short last batch of patches is padded to the batch), that
+# shape's 4 real patches of a 2048x1536 page's last batch, the `testing`
+# config at 256px, ViT-H_14's head dim at the smallest legal N, and N = 128
+FLASH_MAIN = (8, 12, 1024, 64)
+FLASH_SHAPES = (FLASH_MAIN, (4, 12, 1024, 64), (2, 2, 256, 8), (1, 16, 128, 80),
+                (2, 12, 128, 64))
+# relative to max|ref|: float32 forward 1e-5 and backward 1e-4 (the sums run
+# in another order); bfloat16 2^-7, one rounding of the output on each side
+# (the kernels and the plain version both compute in float32 from the same
+# bfloat16 inputs)
+FLASH_TOLERANCES = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0**-7, 2.0**-7)}
+
+
+def flash_counters() -> dict:
+    from synthesis_in_style_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_cuda,
+        flash_attention_fwd_cuda,
+    )
+
+    return {"flash_attention_fwd": flash_attention_fwd_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda}
+
+
+def _flash_bound(shape, dtype, backward: bool) -> dict:
+    """Forward: 4 B h N^2 d operations, q, k, v read and o written (and the
+    float32 logsumexp); backward: 10 B h N^2 d (S recomputed, dP, dV, dK,
+    dQ), q, k, v, o, dO and the logsumexp read, dq, dk, dv written. The
+    operations run at the float32 rate or, in bfloat16, the tensor cores'."""
+    b, h, n, d = shape
+    item = torch.finfo(dtype).bits // 8
+    tensors = 8 if backward else 4
+    nbytes = tensors * b * h * n * d * item + 4 * b * h * n
+    nops = (10 if backward else 4) * b * h * n * n * d
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / rate * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "gflop": nops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def check_flash_attention(detail) -> dict:
+    """The flash forward and backward kernels against their plain versions
+    on the card, TF32 off, at FLASH_SHAPES in float32 and bfloat16; the
+    gradients through the autograd Function (FlashAttentionFunction). At the
+    main shape each is timed (bench_ms; device time from torch.profiler)
+    beside its plain version, its bound and PyTorch's
+    scaled_dot_product_attention (forward; its backward through autograd)."""
+    import torch.nn.functional as F
+
+    from synthesis_in_style_tpu_torch.ops.attention import flash_attention
+    from synthesis_in_style_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+        flash_attention_fwd_cuda,
+        flash_attention_fwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    rows = {"fwd": [], "bwd": []}
+    for shape in FLASH_SHAPES:
+        for dtype, (tol_fwd, tol_bwd) in FLASH_TOLERANCES.items():
+            q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                           for _ in range(4))
+            scale = shape[-1] ** -0.5
+            ref_o, ref_lse = flash_attention_fwd_plain(q, k, v, scale)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = flash_attention(*leaves, sm_scale=scale)
+            o.backward(do)
+            torch.cuda.synchronize()
+            ref_grads = flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do, scale)
+            name = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
+            if o.dtype != dtype or o.shape != q.shape:
+                raise AssertionError(f"flash forward {name}: {o.dtype} {tuple(o.shape)}")
+            errs = {"fwd": _rel(o.float(), ref_o.float().cpu())}
+            errs["bwd"] = max(_rel(t.grad.float(), r.float().cpu())
+                              for t, r in zip(leaves, ref_grads))
+            _, lse = flash_attention_fwd_cuda(q, k, v, scale)
+            errs["lse"] = (lse - ref_lse).abs().max().item()
+            for kind, tol in (("fwd", tol_fwd), ("bwd", tol_bwd)):
+                if not errs[kind] <= tol:
+                    raise AssertionError(f"flash {kind} {name}: relative error {errs[kind]} > "
+                                         f"{tol}")
+                worst[kind] = max(worst[kind], errs[kind])
+            if not errs["lse"] <= 1e-4:
+                raise AssertionError(f"flash logsumexp {name}: {errs['lse']}")
+            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                   "rel_err_fwd": errs["fwd"], "rel_err_bwd": errs["bwd"],
+                   "lse_abs_err": errs["lse"], "tolerance": [tol_fwd, tol_bwd]}
+            if tuple(shape) == FLASH_MAIN:
+                o_k, lse_k = flash_attention_fwd_cuda(q, k, v, scale)
+                sdpa = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                sdpa_o = F.scaled_dot_product_attention(*sdpa, scale=scale)
+
+                def fwd():
+                    flash_attention_fwd_cuda(q, k, v, scale)
+
+                def bwd():
+                    flash_attention_bwd_cuda(q, k, v, o_k, lse_k, do, scale)
+
+                def sdpa_bwd():
+                    torch.autograd.grad(sdpa_o, sdpa, do, retain_graph=True)
+
+                rows["fwd"].append({**row, "ms": bench_ms(fwd), "device_ms": device_ms(fwd),
+                                    "plain_ms": bench_ms(lambda: flash_attention_fwd_plain(
+                                        q, k, v, scale)),
+                                    "library_ms": bench_ms(lambda: F.scaled_dot_product_attention(
+                                        q, k, v, scale=scale)),
+                                    **_flash_bound(shape, dtype, False)})
+                rows["bwd"].append({**row, "ms": bench_ms(bwd), "device_ms": device_ms(bwd),
+                                    "plain_ms": bench_ms(lambda: flash_attention_bwd_plain(
+                                        q, k, v, o_k, lse_k, do, scale)),
+                                    "library_ms": bench_ms(sdpa_bwd),
+                                    **_flash_bound(shape, dtype, True)})
+                del sdpa_o
+            detail.append(row)
+            log(f"flash_attention {row}")
+    out = {}
+    for kind in ("fwd", "bwd"):
+        f32 = next(r for r in rows[kind] if r["dtype"] == "float32")
+        bf16 = next(r for r in rows[kind] if r["dtype"] == "bfloat16")
+        out[f"flash_attention_{kind}"] = {
+            **{key: f32[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")},
+            **{f"bf16_{key}": bf16[key] for key in ("ms", "device_ms", "plain_ms",
+                                                    "library_ms", "bound_ms")},
+            "max_abs_err": worst[kind], "shape": list(FLASH_MAIN)}
+        detail.append({"kind": kind, "main_shape": rows[kind]})
+        log(f"flash_attention_{kind} at {FLASH_MAIN}: float32 {f32['ms']:.4f} ms (device "
+            f"{f32['device_ms']}, plain {f32['plain_ms']:.4f}, SDPA {f32['library_ms']:.4f}) "
+            f"against a bound of {f32['bound_ms']:.4f}; bfloat16 {bf16['ms']:.4f} ms (device "
+            f"{bf16['device_ms']}, plain {bf16['plain_ms']:.4f}, SDPA {bf16['library_ms']:.4f}) "
+            f"against {bf16['bound_ms']:.4f}")
+    return out
+
+
+def _tu_network(size: int, impl: str, num_classes: int = 3):
+    """The shipped config's R50-ViT-B_16 at `size` px, dropout off (the card
+    and the CPU draw different masks)."""
+    import yaml
+
+    from synthesis_in_style_tpu_torch.models.trans_u_net import VIT_CONFIGS, VisionTransformer
+
+    shipped = yaml.safe_load(TU_CONFIG.read_text())
+    config = VIT_CONFIGS[shipped["pretrained_model_name"]]()
+    config["transformer"]["dropout_rate"] = 0.0
+    config["attention_impl"] = impl
+    patch = shipped["vit_patch_size"]
+    config["patches"]["grid"] = (size // patch, size // patch)
+    config["n_skip"] = shipped["num_skip_channels"]
+    return VisionTransformer(config, img_size=size, num_classes=num_classes)
+
+
+def _tu_pass(net, x, labels, device, dtype, impl) -> tuple:
+    """(eval logits, train-mode 0.5 * CE + 0.5 * Dice loss, its gradients)
+    of a copy of `net` on `device` in `dtype` with attention `impl`, all
+    returned in float64 on the CPU."""
+    from synthesis_in_style_tpu_torch.losses.segmentation import cross_entropy_loss, dice_loss
+
+    model = copy.deepcopy(net).to(device=device, dtype=dtype)
+    for block in model.transformer.encoder.layer:
+        block.attn.impl = impl
+    x, labels = x.to(device, dtype), labels.to(device)
+    with torch.no_grad():
+        logits = model.eval()(x).double().cpu()
+    out = model.train()(x)
+    loss = 0.5 * cross_entropy_loss(out, labels) + 0.5 * dice_loss(out, labels, 3)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return logits, float(loss.detach()), {n: g.double().cpu() for n, g in zip(names, grads)}
+
+
+def _leaf_errors(got: dict, ref: dict) -> dict:
+    """Each gradient's max abs error over its tensor's max|ref|, floored at
+    1 % of the largest reference gradient (the JAX package's flash test's
+    rule: the key bias's gradient is zero up to rounding)."""
+    floor = 1e-2 * max(r.abs().max().item() for r in ref.values())
+    return {n: (got[n] - r).abs().max().item() / max(r.abs().max().item(), floor)
+            for n, r in ref.items()}
+
+
+def check_transunet_card_vs_cpu() -> dict:
+    """The full-width R50-ViT-B_16 (seeded weights, dropout off) at
+    TU_CHECK_SIZE px, batch TU_CHECK_BATCH, TF32 off: float32 on the card
+    (flash kernels) and on the CPU (their plain version), each against a
+    float64 pass on the card (attention through xla: the kernels take no
+    float64). Eval logits within 1e-4 of max|ref| on both. The gradients of
+    one train-mode 0.5 * CE + 0.5 * Dice loss, per tensor (`_leaf_errors`):
+    the card's worst and median no more than twice the CPU's. At a random
+    init the backbone's weight-standardised convolutions and GroupNorms are
+    ill-conditioned in float32 (on an H100 the worst gradients landed 3 %
+    from float64 on the card and on the CPU alike), so the card is held to
+    the CPU's float32, not to a fixed bound."""
+    from synthesis_in_style_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd_cuda
+
+    g = torch.Generator().manual_seed(SEED + 17)
+    net = _tu_network(TU_CHECK_SIZE, "flash").init_weights(g)
+    x = torch.rand((TU_CHECK_BATCH, 3, TU_CHECK_SIZE, TU_CHECK_SIZE), generator=g) * 2 - 1
+    labels = torch.randint(0, 3, (TU_CHECK_BATCH, TU_CHECK_SIZE, TU_CHECK_SIZE), generator=g)
+    runs, seconds = {}, {}
+    set_tf32(False)
+    try:
+        for name, device, dtype, impl in (("card", "cuda", torch.float32, "flash"),
+                                          ("cpu", "cpu", torch.float32, "flash"),
+                                          ("card_float64", "cuda", torch.float64, "xla")):
+            launches = flash_attention_fwd_cuda.launches
+            t0 = time.perf_counter()
+            runs[name] = _tu_pass(net, x, labels, device, dtype, impl)
+            seconds[name] = time.perf_counter() - t0
+            if name == "card" and flash_attention_fwd_cuda.launches - launches != 2 * 12:
+                raise AssertionError("the card network did not run the flash kernel 24 times")
+            torch.cuda.empty_cache()
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = runs["card_float64"]
+    out = {"size": TU_CHECK_SIZE, "batch": TU_CHECK_BATCH, "seconds": seconds,
+           "loss": {k: v[1] for k, v in runs.items()}, "parameters": len(ref[2])}
+    for name in ("card", "cpu"):
+        if not torch.isfinite(runs[name][0]).all():
+            raise AssertionError(f"TransUNet: non-finite logits ({name})")
+        by_leaf = _leaf_errors(runs[name][2], ref[2])
+        errs = sorted(by_leaf.values())
+        out[name] = {"logits_rel_err": _rel(runs[name][0], ref[0]), "grad_worst": errs[-1],
+                     "grad_median": errs[len(errs) // 2],
+                     "worst_leaves": sorted(by_leaf, key=by_leaf.get)[-3:]}
+    out["card_vs_cpu"] = {"logits_rel_err": _rel(runs["card"][0], runs["cpu"][0]),
+                          "grad_worst": max(_leaf_errors(runs["card"][2], runs["cpu"][2]).values())}
+    for name in ("card", "cpu"):
+        if not out[name]["logits_rel_err"] <= 1e-4:
+            raise AssertionError(f"TransUNet {name} logits vs float64: {out[name]}")
+    for key in ("grad_worst", "grad_median"):
+        if not out["card"][key] <= 2 * out["cpu"][key]:
+            raise AssertionError(f"TransUNet gradients vs float64, {key}: card {out['card'][key]} "
+                                 f"> 2 x CPU {out['cpu'][key]}")
+    log(f"TransUNet R50-ViT-B_16 {TU_CHECK_SIZE}px batch {TU_CHECK_BATCH}, float32, TF32 off, "
+        f"against float64 on the card: card (flash kernels) {out['card']}, CPU (plain) "
+        f"{out['cpu']}; card vs CPU {out['card_vs_cpu']}; losses {out['loss']}; seconds "
+        f"{seconds}")
+    return out
+
+
+class _ForwardCounter:
+    """Counts forward passes of every VisionTransformer while it is open."""
+
+    def __enter__(self):
+        from torch.nn.modules.module import register_module_forward_hook
+
+        from synthesis_in_style_tpu_torch.models.trans_u_net import VisionTransformer
+
+        self.count = 0
+
+        def hook(module, inputs, output):
+            if isinstance(module, VisionTransformer):
+                self.count += 1
+
+        self._handle = register_module_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self._handle.remove()
+
+
+def write_transunet_config(root: Path, impl: str, cuts: dict) -> Path:
+    """The shipped TransUNet config (R50-ViT-B_16, 512px, batch 8, bfloat16)
+    with `attention_impl` and the cuts, as JSON."""
+    import yaml
+
+    config = {**yaml.safe_load(TU_CONFIG.read_text()), **cuts, "attention_impl": impl}
+    path = root / f"transunet_{impl}_{cuts['max_iter']}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+def run_transunet_training(dataset: Path, config: Path, log_dir: Path):
+    """The training CLI on `config` over the dataset's pairs; returns
+    (trainer, CLI seconds, VisionTransformer forward passes)."""
+    from synthesis_in_style_tpu_torch.cli import train as cli
+
+    argv = [str(config), "--images", str(dataset / "train.json"),
+            "--val-images", str(dataset / "val.json"), "--class-to-color-map", str(COLOR_MAP),
+            "-l", str(log_dir), "-ln", "transunet", "-d", DEVICE]
+    args = cli.build_parser().parse_args(argv)
+    args.log_dir = str(log_dir / "run")
+    _sync()
+    with _ForwardCounter() as forwards:
+        t0 = time.perf_counter()
+        trainer = cli.main(args)
+        _sync()
+        seconds = time.perf_counter() - t0
+    return trainer, seconds, forwards.count
+
+
+def check_transunet_run(trainer, log_dir: Path, impl: str) -> dict:
+    """Finite losses, one validation pass, weights moved from the seeded
+    init, a snapshot; returns the losses and the snapshot."""
+    run = log_dir / "run"
+    lines = [json.loads(line) for line in (run / "log.jsonl").read_text().splitlines()]
+    losses = {key: [line[f"loss/{key}"] for line in lines if f"loss/{key}" in line]
+              for key in ("combined", "CE", "Dice")}
+    if not losses["combined"] or not all(math.isfinite(v) for vs in losses.values() for v in vs):
+        raise AssertionError(f"TransUNet ({impl}) losses not finite: {losses}")
+    evals = [line for line in lines if "evaluation/dice_weighted_avg" in line]
+    if len(evals) != 1:
+        raise AssertionError(f"TransUNet ({impl}): expected one validation pass, log has "
+                             f"{len(evals)}")
+    net = trainer.updater.network
+    fresh = copy.deepcopy(net).cpu().init_weights(torch.Generator().manual_seed(0))
+    moved = sum(not torch.equal(a, b.cpu()) for a, b in zip(fresh.parameters(), net.parameters()))
+    if moved == 0:
+        raise AssertionError(f"TransUNet ({impl}): no parameter moved")
+    snap = run / "checkpoints" / f"iter_{TU_OVERRIDES['max_iter']:08d}.pt"
+    if not snap.exists():
+        raise AssertionError(f"no snapshot {snap}")
+    log(f"TransUNet ({impl}): {moved} of {len(list(fresh.parameters()))} parameter tensors "
+        f"moved; losses {losses}; validation {evals[0]}")
+    return {"losses": losses, "validation": evals[0], "moved": moved, "snapshot": str(snap)}
+
+
+def transunet_training(root: Path, dataset: Path, impl: str, fns: dict) -> dict:
+    """The shipped config with `attention_impl: impl`: a 2-iteration warm-up
+    run, then TU_OVERRIDES' 16 iterations with one validation pass, launch
+    counts from 0 and forward passes counted."""
+    run_transunet_training(dataset, write_transunet_config(root, impl, TU_WARMUP),
+                           root / f"tu_{impl}_warmup")
+    for fn in fns.values():
+        fn.launches = 0
+    config = write_transunet_config(root, impl, TU_OVERRIDES)
+    trainer, seconds, forwards = run_transunet_training(dataset, config, root / f"tu_{impl}")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    iters = trainer.updater.iteration
+    out = {**check_transunet_run(trainer, root / f"tu_{impl}", impl), "iterations": iters,
+           "batch": json.loads(config.read_text())["batch_size"],
+           "loop_seconds": trainer.seconds, "cli_seconds": seconds, "forward_passes": forwards,
+           "launches": launches}
+    out["images_per_s"] = iters * out["batch"] / trainer.seconds
+    out["layers"] = layers = len(trainer.updater.network.transformer.encoder.layer)
+    if impl == "flash":  # one forward launch a block a pass, one backward a block a step
+        want = {"flash_attention_fwd": layers * forwards, "flash_attention_bwd": layers * iters}
+    else:
+        want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    got = {name: launches[name] for name in want}
+    if got != want:
+        raise AssertionError(f"TransUNet ({impl}) flash launches {got}, expected {want} "
+                             f"({forwards} forward passes, {iters} iterations)")
+    out.update(transunet_step_alone(trainer.updater, out["batch"],
+                                    json.loads(config.read_text())["image_size"]))
+    settings = json.loads(config.read_text())
+    log(f"TransUNet training ({impl}, {settings['pretrained_model_name']} "
+        f"{settings['image_size']}px, batch {out['batch']}, {settings.get('compute_dtype')}, "
+        f"{iters} iterations): {out['images_per_s']:.2f} training images/s (train loop "
+        f"{trainer.seconds:.3f} s incl. the validation pass, whole CLI {seconds:.3f} s); "
+        f"{forwards} forward passes; launches {launches}; the step alone "
+        f"{out['step_s']:.4f} s = {out['step_images_per_s']:.2f} images/s")
+    prof = out["step_profile"]
+    log(f"profiled TransUNet step ({impl}): wall {prof['wall_s']:.4f} s, device busy "
+        f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+        "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s" for k in prof["top_kernels"])
+        + "; the port's kernels: " + "; ".join(
+            f"{k} x{v['calls']} {v['device_s']:.6f} s" for k, v in prof["port_kernels"].items()))
+    del trainer
+    return out
+
+
+def transunet_step_alone(updater, batch: int, size: int) -> dict:
+    """The training step alone on a seeded batch already on the device: 10
+    synchronized steps after one warm-up, then one under torch.profiler
+    (`profile_call`; a no-op stand-in in a CPU rehearsal)."""
+    g = torch.Generator().manual_seed(SEED + 19)
+    on_card = {"images": (torch.rand((batch, 3, size, size), generator=g) * 2 - 1).to(
+                   updater.device).contiguous(memory_format=torch.channels_last),
+               "segmented": torch.randint(0, 3, (batch, size, size), generator=g).to(
+                   updater.device)}
+    updater.step(on_card)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        updater.step(on_card)
+    _sync()
+    step_s = (time.perf_counter() - t0) / 10
+    return {"step_s": step_s, "step_images_per_s": batch / step_s,
+            "step_profile": profile_call(lambda: updater.step(on_card))}
+
+
+def transunet_page_path(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict,
+                        layers: int) -> dict:
+    """`analyze_image_segments --use-device-component-filter` with the
+    TransUNet snapshot (512px patches, batch 8, its config's flash attention)
+    over the segmenter phase's pages at 0.7 / 55 (warm-up, then measured
+    with launch counts from 0 and forward passes counted); then pages/s of
+    the segmenter's segment_image_classes over the pages, warm."""
+    sweep = {"min_confidence": ("0.7",), "min_contour_area": ("55",)}
+    run_analyze(pages, pages_gt, snap, root / "tu_analyze_warmup", sweep)
+    for fn in fns.values():
+        fn.launches = 0
+    with _ForwardCounter() as forwards:
+        cli_seconds = run_analyze(pages, pages_gt, snap, root / "tu_analyze", sweep)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    scores = check_results(root / "tu_analyze", sweep)
+    if launches["flash_attention_fwd"] != layers * forwards.count or forwards.count == 0:
+        raise AssertionError(f"TransUNet pages: {launches['flash_attention_fwd']} flash "
+                             f"launches for {forwards.count} forward passes")
+    if launches["flash_attention_bwd"] or not launches["segmented_cc"]:
+        raise AssertionError(f"TransUNet pages: launches {launches}")
+    from PIL import Image
+
+    seg = _page_segmenter(snap, DEVICE)
+    images = [Image.open(p).convert("RGB") for p in sorted(pages.glob("*.png"))]
+    seg.segment_image_classes(images[0])
+    _sync()
+    t0 = time.perf_counter()
+    for image in images:
+        seg.segment_image_classes(image)
+    _sync()
+    rate = len(images) / (time.perf_counter() - t0)
+    out = {"cli_seconds": cli_seconds, "cli_pages": NUM_PAGES, "forward_passes": forwards.count,
+           "launches": launches, "scores": scores, "pages_per_s": rate,
+           "patch": seg.patch_size, "batch": seg.batch_size}
+    log(f"TransUNet page inference ({PAGE_W}x{PAGE_H}, patches {seg.patch_size}, batch "
+        f"{seg.batch_size}, flash, 0.7 / 55, device filter): {rate:.3f} pages/s "
+        f"(segment_image_classes, warm); analyze CLI {NUM_PAGES} pages in {cli_seconds:.3f} s, "
+        f"{forwards.count} forward passes; launches {launches}")
+    del seg
+    return out
+
+
+def transunet_serving(snap: Path, pages: Path, fns: dict, layers: int) -> dict:
+    """Fused page inference and bfloat16 serving with the TransUNet
+    snapshot over the pages (0.7 / 55, vote assembly, device filter): with
+    TF32 off, fused confidences against unfused within 1e-5; the flash
+    forward counted where it runs (2 eager warm-ups and every replay of
+    each program, `layers` launches a batch of patches); pages/s fused
+    float32 and fused bfloat16 (a pass that captures, then one timed); the
+    bfloat16 class maps against float32's (>= 0.99, the JAX package's
+    gate)."""
+    import numpy as np
+    from PIL import Image
+
+    images = [Image.open(p).convert("RGB") for p in sorted(pages.glob("*.png"))]
+    set_tf32(False)
+    try:
+        unfused = _serving_segmenter(snap, fused=False)
+        want = [unfused.segment_image(image) for image in images]
+        _drop(unfused)
+        fns["flash_attention_fwd"].launches = 0
+        fused = _serving_segmenter(snap, fused=True)
+        got = [fused.segment_image(image) for image in images]
+        launches = fns["flash_attention_fwd"].launches
+        programs = fused.page_programs()
+        expected = sum(p.flash_launches_per_replay * (p.replays + (2 if DEVICE == "cuda" else 0))
+                       for p in programs)
+        per_replay = [p.flash_launches_per_replay for p in programs]
+        _drop(fused)
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    fused_err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    if not fused_err <= 1e-5:
+        raise AssertionError(f"TransUNet fused vs unfused pages: {fused_err} > 1e-5")
+    if DEVICE == "cuda" and (launches != expected or not all(
+            n and n % layers == 0 for n in per_replay)):
+        raise AssertionError(f"TransUNet fused pages: {launches} flash launches, expected "
+                             f"{expected} (per replay {per_replay})")
+    out = {"fused_vs_unfused_max_abs": fused_err, "fused_flash_launches": launches,
+           "flash_launches_per_replay": per_replay}
+    classes = {}
+    for dtype in (None, "bfloat16"):
+        seg = _serving_segmenter(snap, fused=True, serving_dtype=dtype)
+        _serve(seg, "fused", images)  # captures
+        _sync()
+        t0 = time.perf_counter()
+        classes[dtype] = _serve(seg, "fused", images)
+        _sync()
+        out[f"fused_{dtype or 'float32'}_pages_per_s"] = len(images) / (time.perf_counter() - t0)
+        _drop(seg)
+    agree = float(np.mean([np.mean(a == b) for a, b in zip(classes[None], classes["bfloat16"])]))
+    if not agree >= 0.99:
+        raise AssertionError(f"TransUNet bfloat16 class maps agree on {agree} < 0.99")
+    out["bf16_class_agreement"] = agree
+    log(f"TransUNet serving (0.7 / 55, device filter): fused vs unfused max abs {fused_err:.3g} "
+        f"(TF32 off); flash launches {launches} = (replays + 2 warm-ups) x {per_replay} per "
+        f"replay; fused {out['fused_float32_pages_per_s']:.3f} pages/s float32, "
+        f"{out['fused_bfloat16_pages_per_s']:.3f} bfloat16; bfloat16 class maps agree with "
+        f"float32's on {agree:.5f}")
+    return out
+
+
+def transunet_phase(root: Path, dataset: Path, pages: Path, pages_gt: Path, fns: dict) -> dict:
+    """The full-width network card vs CPU, training through the CLI with
+    flash and then xla, and page inference with the flash snapshot."""
+    network = check_transunet_card_vs_cpu()
+    torch.cuda.empty_cache()
+    flash = transunet_training(root, dataset, "flash", fns)
+    torch.cuda.empty_cache()
+    xla = transunet_training(root, dataset, "xla", fns)
+    torch.cuda.empty_cache()
+    page = transunet_page_path(root, Path(flash["snapshot"]), pages, pages_gt, fns,
+                               flash["layers"])
+    page["serving"] = transunet_serving(Path(flash["snapshot"]), pages, fns, flash["layers"])
+    log(f"TransUNet training images/s: flash {flash['images_per_s']:.2f}, xla "
+        f"{xla['images_per_s']:.2f}")
+    return {"network": network, "training_flash": flash,
+            "training_xla": xla, "page": page}
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", type=Path, default=None,
@@ -3087,13 +3638,14 @@ def main() -> int:
     detail = {name: [] for name in ("fused_bias_act", "fused_bias_act_edges",
                                     "fused_bias_act_path_shapes", "fused_bias_act_bwd",
                                     "fused_blur", "segmented_cc", "autograd",
-                                    "training_iteration")}
+                                    "training_iteration", "flash_attention")}
     kernels = {"fused_bias_act": check_fused_bias_act(detail["fused_bias_act"]),
                "fused_bias_act_bwd": check_fused_bias_act_bwd(detail["fused_bias_act_bwd"]),
                "fused_blur": check_fused_blur(detail["fused_blur"])}
     edge_err = check_fused_bias_act_edges(detail["fused_bias_act_edges"])
     kernels["fused_bias_act"]["max_abs_err"] = max(kernels["fused_bias_act"]["max_abs_err"],
                                                    edge_err)
+    kernels.update(check_flash_attention(detail["flash_attention"]))
     check_autograd_functions(detail["autograd"])
     check_training_iteration(detail["training_iteration"])
     fns = counters()
@@ -3158,6 +3710,10 @@ def main() -> int:
         # whole-page serving on that phase's snapshot and pages
         serving = serving_phase(root, Path(segmenter["snapshot"]), Path(segmenter["pages"]),
                                 Path(segmenter["pages_gt"]), fns)
+        # TransUNet on the same PNG pairs and pages: the network card vs CPU,
+        # training with attention_impl flash and xla, flash page inference
+        transunet = transunet_phase(root, root / "generated_images", Path(segmenter["pages"]),
+                                    Path(segmenter["pages_gt"]), fns)
         # the capstone recipe's legs: fixture, 128px GAN (resumed), 256px
         # GAN (warm-started), the five-leg chain
         capstone = capstone_phase(root, fns)
@@ -3181,7 +3737,11 @@ def main() -> int:
             ("capstone_gan_256", capstone["launches_256"], ("fused_bias_act",
                                                              "fused_bias_act_bwd", "fused_blur")),
             ("capstone_chain", capstone["chain_launches"], ("fused_bias_act", "fused_blur",
-                                                            "segmented_cc"))):
+                                                            "segmented_cc")),
+            ("transunet_training_flash", transunet["training_flash"]["launches"],
+             ("flash_attention_fwd", "flash_attention_bwd")),
+            ("transunet_page_inference", transunet["page"]["launches"],
+             ("flash_attention_fwd", "segmented_cc"))):
         for name in needed:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path_name} path")
@@ -3214,10 +3774,19 @@ def main() -> int:
     kernels["segmented_cc"].update({"page_ms": page_cc["ms"], "page_plain_ms": page_cc["plain_ms"],
                                     "page_bound_ms": page_cc["bound_ms"]})
 
-    sources = {"fused_bias_act": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:61"),
-               "fused_bias_act_bwd": ("csrc/fused_bias_act.cu", "ops/pallas/fused_bias_act.py:87"),
-               "fused_blur": ("csrc/fused_blur.cu", "ops/pallas/fused_blur.py:223"),
-               "segmented_cc": ("csrc/segmented_cc.cu", "ops/pallas/segmented_cc.py:158")}
+    flash_tpu = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (jax 0.9.0), reached "
+                 "from synthesis_in_style_tpu/models/trans_u_net.py:300")
+    sources = {"fused_bias_act": ("csrc/fused_bias_act.cu",
+                                  "synthesis_in_style_tpu/ops/pallas/fused_bias_act.py:61"),
+               "fused_bias_act_bwd": ("csrc/fused_bias_act.cu",
+                                      "synthesis_in_style_tpu/ops/pallas/fused_bias_act.py:87"),
+               "fused_blur": ("csrc/fused_blur.cu",
+                              "synthesis_in_style_tpu/ops/pallas/fused_blur.py:223"),
+               "segmented_cc": ("csrc/segmented_cc.cu",
+                                "synthesis_in_style_tpu/ops/pallas/segmented_cc.py:158"),
+               "flash_attention_fwd": ("csrc/flash_attention.cu", flash_tpu.format(758)),
+               "flash_attention_bwd": ("csrc/flash_attention.cu",
+                                       flash_tpu.format("1121 (bwd_dkv) and :1456 (bwd_dq)"))}
     rows = []
     for name, (src, tpu) in sources.items():
         k = kernels[name]
@@ -3231,16 +3800,20 @@ def main() -> int:
                    "page_serving": serving["cli_launches"][name],
                    "capstone_gan_128": capstone["launches_128"][name],
                    "capstone_gan_256": capstone["launches_256"][name],
-                   "capstone_chain": capstone["chain_launches"][name]}
+                   "capstone_chain": capstone["chain_launches"][name],
+                   "transunet_training_flash": transunet["training_flash"]["launches"][name],
+                   "transunet_training_xla": transunet["training_xla"]["launches"][name],
+                   "transunet_page_inference": transunet["page"]["launches"][name]}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
-                     "replaces": f"synthesis_in_style_tpu/{tpu}",
+                     "replaces": tpu,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
                      **{key: k[key] for key in ("bf16_ms", "bf16_device_ms", "bf16_bound_ms",
+                                                "bf16_plain_ms", "bf16_library_ms",
                                                 "page_ms", "page_plain_ms", "page_bound_ms")
                         if key in k}})
         if "bf16_ms" in k:
@@ -3257,7 +3830,7 @@ def main() -> int:
                       "one_thread_png": path_1thread},
              "host_route": host_route, "discovery": discovery,
              "training": training, "segmenter": segmenter, "serving": serving,
-             "capstone": capstone},
+             "capstone": capstone, "transunet": transunet},
             indent=1, default=str))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

@@ -31,6 +31,9 @@ sizes, N to a graph (`pages_per_batch`), with two chunks in flight.
 `serving_dtype="bfloat16"` casts the network's parameters and BatchNorm
 statistics once and runs the forward in bfloat16, the softmax in float32.
 
+A TransUNet snapshot serves the same ways (its attention through the flash
+kernel when its config says `attention_impl: flash`).
+
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): the mesh
 and `quantized`.
 """
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+from synthesis_in_style_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd_cuda
 from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
 from synthesis_in_style_tpu_torch.models.base_segmenter import (
     SegmenterConfig,
@@ -144,7 +148,9 @@ class PageProgram:
     At capture the CC kernel wrapper records its labellings into the graph
     and counts them apart (`captured`): `cc_labellings_per_replay` is that
     count, and each replay adds it to the wrapper's count of launches, since
-    a replay is where those kernels run. `replays` counts the replays."""
+    a replay is where those kernels run. The flash attention forward's
+    wrapper is counted the same way (`flash_launches_per_replay`).
+    `replays` counts the replays."""
 
     def __init__(self, body: Callable, n_pages: int, padded_shape: Tuple[int, int, int],
                  n_rows: int, device: torch.device, stream: Optional["torch.cuda.Stream"]):
@@ -156,6 +162,7 @@ class PageProgram:
         self.min_contour_area = torch.zeros((), dtype=torch.float32, device=device)
         self.replays = 0
         self.cc_labellings_per_replay = 0
+        self.flash_launches_per_replay = 0
         self._body = body
         self._graph = None
         if device.type == "cuda":
@@ -176,12 +183,13 @@ class PageProgram:
                 self._body(*self._inputs())
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = connected_components_cuda.captured
+        before = connected_components_cuda.captured, flash_attention_fwd_cuda.captured
         # thread_local: other threads of the process (loader pin-memory
         # threads, PNG writers) may use CUDA meanwhile
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             self.output = self._body(*self._inputs())
-        self.cc_labellings_per_replay = connected_components_cuda.captured - before
+        self.cc_labellings_per_replay = connected_components_cuda.captured - before[0]
+        self.flash_launches_per_replay = flash_attention_fwd_cuda.captured - before[1]
         self._graph = graph
 
     def run(self, min_confidence: torch.Tensor, min_contour_area: torch.Tensor
@@ -196,6 +204,7 @@ class PageProgram:
         self._graph.replay()
         self.replays += 1
         connected_components_cuda.launches += self.cc_labellings_per_replay
+        flash_attention_fwd_cuda.launches += self.flash_launches_per_replay
         return self.output
 
 
@@ -269,7 +278,10 @@ class AnalysisSegmenter:
         from synthesis_in_style_tpu_torch.training_builder import get_train_builder_class
 
         config = dict(self.config)
-        config.pop("fine_tune", None)  # the builder below loads the checkpoint itself
+        # the builder below loads the checkpoint itself, over any pretrained
+        # weights it would otherwise apply
+        config.pop("fine_tune", None)
+        config.pop("pretrained_path", None)
         builder = get_train_builder_class(config)(config, device=self.device)
         return builder.get_network_for_inference(model_checkpoint)
 

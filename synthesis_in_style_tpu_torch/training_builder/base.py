@@ -4,7 +4,8 @@ segmentation architecture.
 
 A snapshot is `<log_dir>/checkpoints/iter_<N>.pt` holding
 `segmentation_network` (the network's state dict, reference layout) and
-`main_optimizer` (the torch Adam state). `--fine-tune` loads the network
+`main_optimizer` (the torch optimizer's state: DocUFCN's Adam, TransUNet's
+SGD). `--fine-tune` loads the network
 only; `--resume-ckpt` loads both and the iteration.
 """
 
@@ -27,7 +28,6 @@ from synthesis_in_style_tpu_torch.evaluation.metrics import (
 )
 from synthesis_in_style_tpu_torch.models.base_segmenter import SegmenterConfig
 from synthesis_in_style_tpu_torch.updaters.segmentation_updater import SegmentationUpdater
-from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import GANOptimizer
 from synthesis_in_style_tpu_torch.utils.checkpoint import (
     SEGMENTATION_NETWORK_KEY,
     load_segmenter_snapshot,
@@ -46,6 +46,7 @@ class BaseTrainBuilder:
         self.network = self._build_network()
         init = torch.Generator().manual_seed(seed)
         self.network.init_weights(init)
+        self._load_pretrained()
         if config.get("fine_tune"):
             self.load_network(config["fine_tune"])
         # cuDNN's NHWC convolutions; the loader's NHWC batches are already
@@ -53,7 +54,7 @@ class BaseTrainBuilder:
         memory_format = torch.channels_last if self.device.type == "cuda" else \
             torch.contiguous_format
         self.network.to(self.device, memory_format=memory_format)
-        self._optimizer: Optional[GANOptimizer] = None
+        self._optimizer = None
         self._updater: Optional[SegmentationUpdater] = None
 
     # ---------------- per architecture ----------------
@@ -61,8 +62,18 @@ class BaseTrainBuilder:
     def _build_network(self) -> nn.Module:
         raise NotImplementedError
 
-    def _build_optimizer(self) -> GANOptimizer:
+    def _build_optimizer(self):
+        """An optimizer with `step(grads)`, `count`, `state_dict()` and
+        `load_state_dict()`."""
         raise NotImplementedError
+
+    def _load_pretrained(self) -> None:
+        """Weights from outside the port's snapshots, applied after the
+        seeded init (none by default)."""
+
+    def _updater_kwargs(self) -> dict:
+        """The updater's step: DocUFCN's weighted cross-entropy by default."""
+        return {"class_weights": self.config.get("class_weights")}
 
     def segmenter_config(self) -> SegmenterConfig:
         if hasattr(self.network, "segmenter_config"):
@@ -76,7 +87,7 @@ class BaseTrainBuilder:
         return segmentation_lr_schedule(self.config, per_epoch)
 
     @property
-    def optimizer(self) -> GANOptimizer:
+    def optimizer(self):
         if self._optimizer is None:
             self._optimizer = self._build_optimizer()
         return self._optimizer
@@ -87,7 +98,7 @@ class BaseTrainBuilder:
         self.network.load_state_dict(snap[SEGMENTATION_NETWORK_KEY], strict=True)
 
     def resume(self, checkpoint) -> None:
-        """Network, optimizer state (Adam's step count included)."""
+        """Network, optimizer state (its update count included)."""
         snap = load_segmenter_snapshot(checkpoint)
         self.network.load_state_dict(snap[SEGMENTATION_NETWORK_KEY], strict=True)
         if "main_optimizer" in snap:
@@ -100,14 +111,13 @@ class BaseTrainBuilder:
             self._updater = SegmentationUpdater(
                 self.network, self.optimizer,
                 iterators={"images": EpochStream(self.train_data_loader)},
-                class_weights=self.config.get("class_weights"),
                 compute_dtype=self.config.get("compute_dtype"), seed=self.seed,
-                device=self.device)
+                device=self.device, **self._updater_kwargs())
         return self._updater
 
     def get_snapshotter(self, log_dir=None) -> Snapshotter:
         def save(trainer, path: Path) -> None:
-            save_segmenter_snapshot(path, self.network, self.optimizer.adam,
+            save_segmenter_snapshot(path, self.network, self.optimizer,
                                     trainer.updater.iteration)
 
         return Snapshotter(save, log_dir or self.config["log_dir"],

@@ -1,5 +1,7 @@
-"""Segmentation training step (counterpart of the standard weighted
-cross-entropy step of synthesis_in_style_tpu/updaters/segmentation_updater.py).
+"""Segmentation training steps (counterpart of
+synthesis_in_style_tpu/updaters/segmentation_updater.py): DocUFCN's weighted
+cross-entropy step (`standard_train_step`) and TransUNet's 0.5 * CE + 0.5 *
+Dice step (`transunet_train_step`, reporting `combined`, `CE` and `Dice`).
 
 * `compute_dtype` ("bfloat16") runs the forward and backward with every
   floating parameter cast to that type, differentiably, so the gradients
@@ -7,25 +9,24 @@ cross-entropy step of synthesis_in_style_tpu/updaters/segmentation_updater.py).
   whole parameter tree. BatchNorm's scale and bias are rounded to that type
   and handed over as float32 (see `cast_params`); its statistics and running
   buffers stay float32, and the logits return to float32 before the loss.
-* The optimizer is `GANOptimizer` with weight decay: clip the global norm
-  to 1, add weight_decay * param, Adam with the schedule at the update
-  count.
+* The optimizer is anything with `step(grads)`: DocUFCN's `GANOptimizer`
+  with weight decay (clip the global norm to 1, add weight_decay * param,
+  Adam with the schedule at the update count), TransUNet's `SGDOptimizer`.
 * Dropout draws from torch's default generator, seeded from (seed,
   iteration) at each step, so a resumed run draws what a straight run did.
 
-TransUNet and EMANet steps are not ported.
+The EMANet step is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from synthesis_in_style_tpu_torch.core.updater import Updater, iteration_seed
-from synthesis_in_style_tpu_torch.losses.segmentation import cross_entropy_loss
-from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import GANOptimizer
+from synthesis_in_style_tpu_torch.losses.segmentation import cross_entropy_loss, dice_loss
 
 
 def cast_params(network: nn.Module, dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
@@ -60,7 +61,12 @@ def forward_train(network: nn.Module, images: torch.Tensor,
     return logits.float()
 
 
-def standard_train_step(network: nn.Module, optimizer: GANOptimizer, batch: Dict[str, torch.Tensor],
+def _apply_gradients(network: nn.Module, optimizer, loss: torch.Tensor) -> None:
+    grads = torch.autograd.grad(loss, list(network.parameters()), allow_unused=True)
+    optimizer.step(grads)
+
+
+def standard_train_step(network: nn.Module, optimizer, batch: Dict[str, torch.Tensor],
                         class_weights: Optional[torch.Tensor] = None,
                         compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """One weighted cross-entropy step on {"images": NCHW, "segmented":
@@ -68,20 +74,75 @@ def standard_train_step(network: nn.Module, optimizer: GANOptimizer, batch: Dict
     network.train()
     logits = forward_train(network, batch["images"], compute_dtype)
     loss = cross_entropy_loss(logits, batch["segmented"], class_weights)
-    params = list(network.parameters())
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    optimizer.step(grads)
+    _apply_gradients(network, optimizer, loss)
     return {"softmax": loss.detach()}
+
+
+def transunet_train_step(network: nn.Module, optimizer, batch: Dict[str, torch.Tensor],
+                         num_classes: int, compute_dtype: Optional[torch.dtype] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """One 0.5 * CE + 0.5 * Dice step (the JAX package's
+    `make_transunet_train_step`); returns {"combined", "CE", "Dice"}."""
+    network.train()
+    logits = forward_train(network, batch["images"], compute_dtype)
+    labels = batch["segmented"]
+    loss_ce = cross_entropy_loss(logits, labels)
+    loss_dice = dice_loss(logits, labels, num_classes)
+    loss = 0.5 * loss_ce + 0.5 * loss_dice
+    _apply_gradients(network, optimizer, loss)
+    return {"combined": loss.detach(), "CE": loss_ce.detach(), "Dice": loss_dice.detach()}
+
+
+class SGDOptimizer:
+    """optax.chain(add_decayed_weights(weight_decay), sgd(schedule,
+    momentum)) over a fixed parameter list, on torch.optim.SGD: the decay is
+    added to the gradient before the momentum trace (dampening 0, no
+    Nesterov), and each update steps at the schedule's rate for the count of
+    updates made before it. The count travels in the state dict's parameter
+    groups (`update_count`)."""
+
+    def __init__(self, params, schedule: Callable[[int], float], momentum: float = 0.9,
+                 weight_decay: float = 0.0):
+        self.params = list(params)
+        self.schedule = schedule
+        self.sgd = torch.optim.SGD(self.params, lr=schedule(0), momentum=momentum,
+                                   weight_decay=weight_decay)
+        for group in self.sgd.param_groups:
+            group["update_count"] = 0
+
+    @property
+    def count(self) -> int:
+        """Updates made so far."""
+        return int(self.sgd.param_groups[0]["update_count"])
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        lr = self.schedule(self.count)
+        for p, g in zip(self.params, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        for group in self.sgd.param_groups:
+            group["lr"] = lr
+            group["update_count"] += 1
+        self.sgd.step()
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> dict:
+        return self.sgd.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.sgd.load_state_dict(state)
 
 
 class SegmentationUpdater(Updater):
     """Fetches a batch of NHWC images and labels, moves it to the device
-    (as an NCHW view, channels last in memory), and takes one step; reports
-    `loss/softmax`."""
+    (as an NCHW view, channels last in memory), and takes one step: the
+    weighted cross-entropy step, or with `num_classes` the TransUNet step;
+    reports its losses under `loss/`."""
 
-    def __init__(self, network: nn.Module, optimizer: GANOptimizer, iterators,
+    def __init__(self, network: nn.Module, optimizer, iterators,
                  class_weights=None, compute_dtype: Optional[str] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", num_classes: Optional[int] = None):
         super().__init__(iterators, seed=seed, device=device)
         self.network = network
         self.optimizer = optimizer
@@ -89,13 +150,20 @@ class SegmentationUpdater(Updater):
                               torch.as_tensor(class_weights, dtype=torch.float32,
                                               device=self.device))
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
+        self.num_classes = num_classes
+
+    def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step on a batch already on the device; returns its losses."""
+        if self.num_classes is not None:
+            return transunet_train_step(self.network, self.optimizer, batch, self.num_classes,
+                                        self.compute_dtype)
+        return standard_train_step(self.network, self.optimizer, batch, self.class_weights,
+                                   self.compute_dtype)
 
     def update_core(self):
         batch = self.next_batch("images")
         images = batch["images"].to(self.device, non_blocking=True).permute(0, 3, 1, 2)
         labels = batch["segmented"].to(self.device, non_blocking=True)
         torch.manual_seed(iteration_seed(self.seed, self.iteration))
-        metrics = standard_train_step(self.network, self.optimizer,
-                                      {"images": images, "segmented": labels},
-                                      self.class_weights, self.compute_dtype)
+        metrics = self.step({"images": images, "segmented": labels})
         self.report(metrics, prefix="loss")

@@ -22,6 +22,9 @@ reference layout: `generator`, `discriminator` and `g_ema` state dicts,
 `generator_optimizer` and `discriminator_optimizer` torch optimizer states,
 and `training_state` with `mean_path_length`.
 
+`doc_ufcn_params_from_jax` and `transunet_params_from_jax` carry the JAX
+package's segmenters across in the reference torch layout (so do bare
+DocUFCN and TransUNet `.pt` state dicts, through `load_segmenter_snapshot`).
 `discover_latest_snapshot` finds the newest `iter_<N>.pt` across a run's
 timestamped attempts (`--resume-ckpt latest`); `upscale_gan_snapshot_tree`
 and `merge_matching_leaves` warm-start a larger GAN from a smaller one's
@@ -279,15 +282,81 @@ def doc_ufcn_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tenso
             else torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+def transunet_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's TransUNet variables ({"params", "batch_stats"},
+    numpy leaves) -> the port's VisionTransformer state dict, in the
+    reference's key layout (the inverse of `torch_transunet_to_flax` in the
+    JAX package)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(t: str, p: Dict[str, Any]) -> None:
+        sd[f"{t}.weight"] = _hwio_to_oihw(p["kernel"])
+        if "bias" in p:
+            sd[f"{t}.bias"] = np.asarray(p["bias"])
+
+    def affine(t: str, p: Dict[str, Any]) -> None:  # GroupNorm / LayerNorm
+        sd[f"{t}.weight"], sd[f"{t}.bias"] = np.asarray(p["scale"]), np.asarray(p["bias"])
+
+    def lin(t: str, p: Dict[str, Any]) -> None:
+        sd[f"{t}.weight"], sd[f"{t}.bias"] = np.asarray(p["kernel"]).T, np.asarray(p["bias"])
+
+    def conv_bn_relu(t: str, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+        conv(f"{t}.0", p["conv"])
+        affine(f"{t}.1", p["bn"])
+        sd[f"{t}.1.running_mean"] = np.asarray(s["bn"]["mean"])
+        sd[f"{t}.1.running_var"] = np.asarray(s["bn"]["var"])
+        sd[f"{t}.1.num_batches_tracked"] = np.zeros((), np.int64)
+
+    emb = "transformer.embeddings"
+    if "hybrid_model" in params:
+        hybrid = params["hybrid_model"]
+        conv(f"{emb}.hybrid_model.root.conv", hybrid["root_conv"])
+        affine(f"{emb}.hybrid_model.root.gn", hybrid["root_gn"])
+        for name, unit in hybrid.items():
+            if not name.startswith("block"):
+                continue
+            block, unit_name = name.split("_")
+            t = f"{emb}.hybrid_model.body.{block}.{unit_name}"
+            for j in (1, 2, 3):
+                conv(f"{t}.conv{j}", unit[f"conv{j}"])
+                affine(f"{t}.gn{j}", unit[f"gn{j}"])
+            if "downsample" in unit:
+                conv(f"{t}.downsample", unit["downsample"])
+                affine(f"{t}.gn_proj", unit["gn_proj"])
+    conv(f"{emb}.patch_embeddings", params["patch_embeddings"])
+    sd[f"{emb}.position_embeddings"] = np.asarray(params["position_embeddings"])
+    n_layers = sum(1 for name in params if name.startswith("encoderblock_"))
+    for i in range(n_layers):
+        t, p = f"transformer.encoder.layer.{i}", params[f"encoderblock_{i}"]
+        affine(f"{t}.attention_norm", p["attention_norm"])
+        affine(f"{t}.ffn_norm", p["ffn_norm"])
+        for name in ("query", "key", "value", "out"):
+            lin(f"{t}.attn.{name}", p["attn"][name])
+        lin(f"{t}.ffn.fc1", p["ffn"]["fc1"])
+        lin(f"{t}.ffn.fc2", p["ffn"]["fc2"])
+    affine("transformer.encoder.encoder_norm", params["encoder_norm"])
+    conv_bn_relu("decoder.conv_more", params["conv_more"], stats["conv_more"])
+    n_blocks = sum(1 for name in params if name.startswith("decoder_block_"))
+    for i in range(n_blocks):
+        for c in ("conv1", "conv2"):
+            conv_bn_relu(f"decoder.blocks.{i}.{c}", params[f"decoder_block_{i}"][c],
+                         stats[f"decoder_block_{i}"][c])
+    conv("segmentation_head.0", params["segmentation_head"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) if v.dtype == np.int64
+            else torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
 SEGMENTATION_NETWORK_KEY = "segmentation_network"
 
 
 def save_segmenter_snapshot(path: Union[str, Path], network: torch.nn.Module,
-                            optimizer: Optional[torch.optim.Optimizer] = None,
-                            iteration: Optional[int] = None) -> None:
+                            optimizer=None, iteration: Optional[int] = None) -> None:
     """Write a segmenter training snapshot: `segmentation_network` (the
-    network's state dict, reference layout) and `main_optimizer` (torch
-    optimizer state), through a temporary file."""
+    network's state dict, reference layout) and `main_optimizer` (the
+    optimizer's `state_dict()`: a torch Adam's or SGD's), through a
+    temporary file."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(path.name + ".tmp")
@@ -303,7 +372,7 @@ def save_segmenter_snapshot(path: Union[str, Path], network: torch.nn.Module,
 def load_segmenter_snapshot(path: Union[str, Path]) -> Dict[str, Any]:
     """{"segmentation_network": state dict[, "main_optimizer": ...,
     "iteration": ...]} from a snapshot of the port, or from a reference
-    `.pt` (the same key, or a bare DocUFCN state dict)."""
+    `.pt` (the same key, or a bare DocUFCN or TransUNet state dict)."""
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
@@ -313,7 +382,7 @@ def load_segmenter_snapshot(path: Union[str, Path]) -> Dict[str, Any]:
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
     if SEGMENTATION_NETWORK_KEY in ckpt:
         return ckpt
-    if "classifier.weight" in ckpt:
+    if "classifier.weight" in ckpt or "segmentation_head.0.weight" in ckpt:  # DocUFCN, TransUNet
         return {SEGMENTATION_NETWORK_KEY: ckpt}
     raise KeyError(f"{path}: no {SEGMENTATION_NETWORK_KEY!r} state dict; found {sorted(ckpt)}")
 
