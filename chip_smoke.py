@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--detail PATH]
+  python3 chip_smoke.py [--detail PATH] [--only flash]
 
 1. Builds the four hand-written kernel libraries from
    synthesis_in_style_tpu_torch/csrc (nvcc, one process per source, all
@@ -146,13 +146,17 @@
 12. TransUNet (configs/segmenter/stylegan2_trans_u_net_segmenter.yaml:
    R50-ViT-B_16 at 512px, 12 blocks of 12 heads over 1024 tokens, batch 8,
    bfloat16, SGD). Before the other phases, with TF32 off: the flash
-   attention kernels (csrc/flash_attention.cu) against their plain version at
-   (8, 12, 1024, 64) (every training step and page batch; a short last batch
-   of patches is padded to the batch), (4, 12, 1024, 64), (2, 2, 256, 8),
-   (1, 16, 128, 80) and (2, 12, 128, 64), float32 and bfloat16, gradients
-   through the autograd Function (float32 within 1e-5 / 1e-4 of max|ref|,
-   bfloat16 within 2^-7), timed at the main shape beside the plain version,
-   the bound and scaled_dot_product_attention. After the serving phase: the
+   attention kernels (csrc/flash_attention.cu: float32 FMAs; bfloat16 on the
+   tensor cores, csrc/flash_attention_bf16.cuh) against their plain version
+   at (8, 12, 1024, 64) (every training step and page batch; a short last
+   batch of patches is padded to the batch), (4, 12, 1024, 64), (2, 2, 256,
+   8), (1, 16, 128, 80) and (2, 12, 128, 64), and at N a multiple of no
+   tile, (2, 2, 200, 64), (1, 4, 150, 128) and (1, 2, 257, 80), float32
+   and bfloat16, gradients through the autograd Function (float32 within 1e-5 / 1e-4 of
+   max|ref|, bfloat16 within 2^-7), two bfloat16 backward calls at the main
+   shape bitwise equal (the two-pass backward has no atomics), timed at the
+   main shape beside the plain version, the bound and
+   scaled_dot_product_attention. After the serving phase: the
    full-width network at 512px, batch 2, float32, TF32 off, on the card
    (flash) and on the CPU (plain), both against float64 on the card (eval
    logits within 1e-4; one step's gradients no further from float64 on the
@@ -180,6 +184,10 @@ bf16_device_ms and bf16_bound_ms, bfloat16 numbers at the main shape), and
 script exits non-zero; without a CUDA device it exits 2 before any phase.
 On one card, with the long per-phase record written to a file:
   python3 chip_smoke.py --detail chip_smoke_detail.json
+The flash attention check of step 12 alone (build, ptxas's registers, spills
+and shared memory for the flash kernels, the check and its timings; no path
+is driven, so the last line is {"ok": true, "only": "flash"}):
+  python3 chip_smoke.py --only flash [--detail PATH]
 
 The same paths by hand: cluster discovery, selection and labelling
   python -m synthesis_in_style_tpu_torch.cli.create_semantic_segmentation <ckpt> \
@@ -241,9 +249,11 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1362,7 +1372,8 @@ def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
 PORT_KERNELS = ("bias_act_fwd_kernel", "bias_act_bwd_kernel", "blur_tail_kernel",
                 "cc_local_kernel", "cc_boundary_kernel", "cc_flatten_kernel",
                 "flash_fwd_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel")
+                "flash_bwd_dq_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkdv_mma_kernel",
+                "flash_bwd_dq_mma_kernel")
 
 
 def profile_call(fn, top: int = 12) -> dict:
@@ -3113,10 +3124,16 @@ TU_CHECK_BATCH = 2
 FLASH_MAIN = (8, 12, 1024, 64)
 FLASH_SHAPES = (FLASH_MAIN, (4, 12, 1024, 64), (2, 2, 256, 8), (1, 16, 128, 80),
                 (2, 12, 128, 64))
+# N a multiple of no kernel's tile (float32: 64 rows and keys; bfloat16: 128
+# query rows, 128 keys at d <= 64 and 64 above, 32-row dK / dV query tiles,
+# 64-key dQ tiles), so that the masks past N run, and d padded in each
+FLASH_RAGGED = ((2, 2, 200, 64), (1, 4, 150, 128), (1, 2, 257, 80))
 # relative to max|ref|: float32 forward 1e-5 and backward 1e-4 (the sums run
-# in another order); bfloat16 2^-7, one rounding of the output on each side
-# (the kernels and the plain version both compute in float32 from the same
-# bfloat16 inputs)
+# in another order); bfloat16 2^-7, one rounding of the output on each side:
+# the kernels and the plain version compute in float32 from the same
+# bfloat16 inputs and both round P (before P V and P^T dO) and dS * scale
+# (before dS^T Q and dS K) to bfloat16, the forward's P against its running
+# maximum in the kernel and against the row's in the plain version
 FLASH_TOLERANCES = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0**-7, 2.0**-7)}
 
 
@@ -3149,11 +3166,13 @@ def _flash_bound(shape, dtype, backward: bool) -> dict:
 
 def check_flash_attention(detail) -> dict:
     """The flash forward and backward kernels against their plain versions
-    on the card, TF32 off, at FLASH_SHAPES in float32 and bfloat16; the
+    on the card, TF32 off, at FLASH_SHAPES and FLASH_RAGGED in float32 and
+    bfloat16; the
     gradients through the autograd Function (FlashAttentionFunction). At the
-    main shape each is timed (bench_ms; device time from torch.profiler)
-    beside its plain version, its bound and PyTorch's
-    scaled_dot_product_attention (forward; its backward through autograd)."""
+    main shape two bfloat16 backward calls give the same bits, and each
+    kernel is timed (bench_ms; device time from torch.profiler) beside its
+    plain version, its bound and PyTorch's scaled_dot_product_attention
+    (forward; its backward through autograd)."""
     import torch.nn.functional as F
 
     from synthesis_in_style_tpu_torch.ops.attention import flash_attention
@@ -3167,63 +3186,69 @@ def check_flash_attention(detail) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
     worst = {"fwd": 0.0, "bwd": 0.0}
     rows = {"fwd": [], "bwd": []}
-    for shape in FLASH_SHAPES:
-        for dtype, (tol_fwd, tol_bwd) in FLASH_TOLERANCES.items():
-            q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                           for _ in range(4))
-            scale = shape[-1] ** -0.5
-            ref_o, ref_lse = flash_attention_fwd_plain(q, k, v, scale)
-            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            o = flash_attention(*leaves, sm_scale=scale)
-            o.backward(do)
-            torch.cuda.synchronize()
-            ref_grads = flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do, scale)
-            name = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
-            if o.dtype != dtype or o.shape != q.shape:
-                raise AssertionError(f"flash forward {name}: {o.dtype} {tuple(o.shape)}")
-            errs = {"fwd": _rel(o.float(), ref_o.float().cpu())}
-            errs["bwd"] = max(_rel(t.grad.float(), r.float().cpu())
-                              for t, r in zip(leaves, ref_grads))
-            _, lse = flash_attention_fwd_cuda(q, k, v, scale)
-            errs["lse"] = (lse - ref_lse).abs().max().item()
-            for kind, tol in (("fwd", tol_fwd), ("bwd", tol_bwd)):
-                if not errs[kind] <= tol:
-                    raise AssertionError(f"flash {kind} {name}: relative error {errs[kind]} > "
-                                         f"{tol}")
-                worst[kind] = max(worst[kind], errs[kind])
-            if not errs["lse"] <= 1e-4:
-                raise AssertionError(f"flash logsumexp {name}: {errs['lse']}")
-            row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   "rel_err_fwd": errs["fwd"], "rel_err_bwd": errs["bwd"],
-                   "lse_abs_err": errs["lse"], "tolerance": [tol_fwd, tol_bwd]}
-            if tuple(shape) == FLASH_MAIN:
-                o_k, lse_k = flash_attention_fwd_cuda(q, k, v, scale)
-                sdpa = [t.clone().requires_grad_(True) for t in (q, k, v)]
-                sdpa_o = F.scaled_dot_product_attention(*sdpa, scale=scale)
+    for shape, dtype in itertools.product(FLASH_SHAPES + FLASH_RAGGED, FLASH_TOLERANCES):
+        tol_fwd, tol_bwd = FLASH_TOLERANCES[dtype]
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        scale = shape[-1] ** -0.5
+        ref_o, ref_lse = flash_attention_fwd_plain(q, k, v, scale)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention(*leaves, sm_scale=scale)
+        o.backward(do)
+        torch.cuda.synchronize()
+        ref_grads = flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do, scale)
+        name = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
+        if o.dtype != dtype or o.shape != q.shape:
+            raise AssertionError(f"flash forward {name}: {o.dtype} {tuple(o.shape)}")
+        errs = {"fwd": _rel(o.float(), ref_o.float().cpu())}
+        errs["bwd"] = max(_rel(t.grad.float(), r.float().cpu())
+                          for t, r in zip(leaves, ref_grads))
+        _, lse = flash_attention_fwd_cuda(q, k, v, scale)
+        errs["lse"] = (lse - ref_lse).abs().max().item()
+        for kind, tol in (("fwd", tol_fwd), ("bwd", tol_bwd)):
+            if not errs[kind] <= tol:
+                raise AssertionError(f"flash {kind} {name}: relative error {errs[kind]} > "
+                                     f"{tol}")
+            worst[kind] = max(worst[kind], errs[kind])
+        if not errs["lse"] <= 1e-4:
+            raise AssertionError(f"flash logsumexp {name}: {errs['lse']}")
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+               "rel_err_fwd": errs["fwd"], "rel_err_bwd": errs["bwd"],
+               "lse_abs_err": errs["lse"], "tolerance": [tol_fwd, tol_bwd]}
+        if tuple(shape) == FLASH_MAIN:
+            o_k, lse_k = flash_attention_fwd_cuda(q, k, v, scale)
+            if dtype == torch.bfloat16:
+                first, second = (flash_attention_bwd_cuda(q, k, v, o_k, lse_k, do, scale)
+                                 for _ in range(2))
+                if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                    raise AssertionError(f"flash backward {name}: two calls differ")
+                row["bwd_bitwise_repeatable"] = True
+            sdpa = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            sdpa_o = F.scaled_dot_product_attention(*sdpa, scale=scale)
 
-                def fwd():
-                    flash_attention_fwd_cuda(q, k, v, scale)
+            def fwd():
+                flash_attention_fwd_cuda(q, k, v, scale)
 
-                def bwd():
-                    flash_attention_bwd_cuda(q, k, v, o_k, lse_k, do, scale)
+            def bwd():
+                flash_attention_bwd_cuda(q, k, v, o_k, lse_k, do, scale)
 
-                def sdpa_bwd():
-                    torch.autograd.grad(sdpa_o, sdpa, do, retain_graph=True)
+            def sdpa_bwd():
+                torch.autograd.grad(sdpa_o, sdpa, do, retain_graph=True)
 
-                rows["fwd"].append({**row, "ms": bench_ms(fwd), "device_ms": device_ms(fwd),
-                                    "plain_ms": bench_ms(lambda: flash_attention_fwd_plain(
-                                        q, k, v, scale)),
-                                    "library_ms": bench_ms(lambda: F.scaled_dot_product_attention(
-                                        q, k, v, scale=scale)),
-                                    **_flash_bound(shape, dtype, False)})
-                rows["bwd"].append({**row, "ms": bench_ms(bwd), "device_ms": device_ms(bwd),
-                                    "plain_ms": bench_ms(lambda: flash_attention_bwd_plain(
-                                        q, k, v, o_k, lse_k, do, scale)),
-                                    "library_ms": bench_ms(sdpa_bwd),
-                                    **_flash_bound(shape, dtype, True)})
-                del sdpa_o
-            detail.append(row)
-            log(f"flash_attention {row}")
+            rows["fwd"].append({**row, "ms": bench_ms(fwd), "device_ms": device_ms(fwd),
+                                "plain_ms": bench_ms(lambda: flash_attention_fwd_plain(
+                                    q, k, v, scale)),
+                                "library_ms": bench_ms(lambda: F.scaled_dot_product_attention(
+                                    q, k, v, scale=scale)),
+                                **_flash_bound(shape, dtype, False)})
+            rows["bwd"].append({**row, "ms": bench_ms(bwd), "device_ms": device_ms(bwd),
+                                "plain_ms": bench_ms(lambda: flash_attention_bwd_plain(
+                                    q, k, v, o_k, lse_k, do, scale)),
+                                "library_ms": bench_ms(sdpa_bwd),
+                                **_flash_bound(shape, dtype, True)})
+            del sdpa_o
+        detail.append(row)
+        log(f"flash_attention {row}")
     out = {}
     for kind in ("fwd", "bwd"):
         f32 = next(r for r in rows[kind] if r["dtype"] == "float32")
@@ -3233,6 +3258,7 @@ def check_flash_attention(detail) -> dict:
                                          "bound_ms", "bound_by")},
             **{f"bf16_{key}": bf16[key] for key in ("ms", "device_ms", "plain_ms",
                                                     "library_ms", "bound_ms")},
+            "bf16_source": "synthesis_in_style_tpu_torch/csrc/flash_attention_bf16.cuh",
             "max_abs_err": worst[kind], "shape": list(FLASH_MAIN)}
         detail.append({"kind": kind, "main_shape": rows[kind]})
         log(f"flash_attention_{kind} at {FLASH_MAIN}: float32 {f32['ms']:.4f} ms (device "
@@ -3613,10 +3639,43 @@ def transunet_phase(root: Path, dataset: Path, pages: Path, pages_gt: Path, fns:
 
 
 
+def flash_only(smi: str, detail_path) -> int:
+    """`--only flash`: what ptxas reported for the flash kernels, then
+    check_flash_attention."""
+    from synthesis_in_style_tpu_torch.ops.cuda import build
+
+    ptxas = (build.BUILD_ROOT / build.source_digest() / "flash_attention.log").read_text()
+    lines, kernel = [], None
+    for line in ptxas.splitlines():
+        # a kernel's mangled name, e.g. ...16flash_fwd_kernelIfLi64EEEv...
+        entry = re.search(r"Compiling entry function '.*?\d+(flash_[a-z_]+?_kernel)I(\w+?)EEv",
+                          line)
+        if entry:
+            targs = entry.group(2)
+            kind = ["bfloat16"] if "bfloat16" in targs else ["float"] * targs.startswith("f")
+            kernel = f"{entry.group(1)}<{', '.join(kind + re.findall(r'Li(\d+)E', targs))}>"
+            lines.append(kernel + ":")
+        elif kernel and ("spill" in line or "Used" in line):
+            lines[-1] += " " + line.split(":", 1)[-1].strip()
+    log("ptxas, flash_attention.cu:\n" + "\n".join(lines))
+    detail = []
+    kernels = check_flash_attention(detail)
+    if detail_path is not None:
+        detail_path.parent.mkdir(parents=True, exist_ok=True)
+        detail_path.write_text(json.dumps({"card": smi, "kernels": kernels, "ptxas": lines,
+                                           "detail": detail}, indent=1, default=str))
+    log(f"card: {smi}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "only": "flash"}))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", type=Path, default=None,
                         help="write every measured row to this JSON file")
+    parser.add_argument("--only", choices=["flash"], default=None,
+                        help="run this kernel check alone and drive no path")
     cli = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3635,6 +3694,8 @@ def main() -> int:
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
     set_tf32(False)  # parity phases compare in full float32
+    if cli.only == "flash":
+        return flash_only(smi, cli.detail)
     detail = {name: [] for name in ("fused_bias_act", "fused_bias_act_edges",
                                     "fused_bias_act_path_shapes", "fused_bias_act_bwd",
                                     "fused_blur", "segmented_cc", "autograd",
@@ -3814,6 +3875,7 @@ def main() -> int:
                      "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
                      **{key: k[key] for key in ("bf16_ms", "bf16_device_ms", "bf16_bound_ms",
                                                 "bf16_plain_ms", "bf16_library_ms",
+                                                "bf16_source",
                                                 "page_ms", "page_plain_ms", "page_bound_ms")
                         if key in k}})
         if "bf16_ms" in k:

@@ -1,7 +1,7 @@
 // Flash attention, forward and backward: non-causal softmax(q k^T * scale) v
 // over (batch * heads, N, d) tensors, row-major and contiguous, in float32
-// or bfloat16 (every product and sum in float32, outputs in the input type),
-// head_dim d <= 128, any N. No N x N matrix ever reaches device memory.
+// or bfloat16 (outputs in the input type), head_dim d <= 128 (a multiple of 8
+// in bfloat16), any N. No N x N matrix ever reaches device memory.
 //
 // Replaces the TPU kernels the JAX package reaches from
 // synthesis_in_style_tpu/models/trans_u_net.py (Attention.__call__,
@@ -10,28 +10,33 @@
 // of jax 0.9.0) and the two kernels of its custom VJP (`_flash_attention_
 // bwd_dkv`, :1121, and `_flash_attention_bwd_dq`, :1456).
 //
-// Kernels, all on the caller's stream:
-//   1. flash_fwd_kernel: one block per (batch * head, tile of 64 query rows).
-//      It stages the query tile in shared memory, then loops over 64-row
-//      K / V tiles staged there too, with an online softmax (running row
-//      max and row sum, the accumulator rescaled as the max grows), and
-//      writes O and the float32 logsumexp of each row (natural log).
-//   2. flash_bwd_delta_kernel: D = rowsum(dO * O), one warp per row.
-//   3. flash_bwd_dkdv_kernel: one block per (batch * head, tile of 64 key
-//      rows), looping over the query tiles: P is recomputed from the saved
-//      logsumexp, dV += P^T dO, dP = dO V^T, dS = P * (dP - D), dK += dS^T Q.
-//   4. flash_bwd_dq_kernel: one block per (batch * head, query tile), looping
-//      over the key tiles: P and dS again, dQ += dS K. A separate pass, so
-//      dQ needs no atomics and every sum is taken in a fixed order (the
-//      results are the same from run to run).
-// Each block has 256 threads as 16 x 16; a thread owns a 4 x 4 patch of
-// every 64 x 64 score tile (rows ty*4 .. ty*4+3, columns tx + 16 j) and 4
-// rows x (DP / 16) columns of its accumulators, DP being d padded to 32, 64
-// or 128 (a template argument). Row maxima and sums are 16-lane shuffles.
-// Tiles are converted to float32 as they are staged; K and V are stored
-// transposed where the product reads them along the key axis, with one
-// float of padding a row so that neither the transposing stores nor the
-// reads conflict in shared-memory banks.
+// The two types run two designs, all on the caller's stream:
+//
+// bfloat16 (flash_attention_bf16.cuh), on the tensor cores:
+//   1. flash_fwd_wgmma_kernel: a block per (batch * head, 128 query rows),
+//      two consumer warpgroups of 64 rows and a producer warp that streams
+//      K / V tiles (128 keys at d <= 64, 64 at d <= 128) by TMA into a
+//      three-stage mbarrier ring; S = Q K^T and O += P V are wgmma (P from
+//      registers, rounded to bfloat16 as the TPU kernel rounds it), the
+//      online softmax in registers, each tile's while the tensor cores run
+//      the previous tile's P V; O and the float32 logsumexp out.
+//   2. flash_bwd_delta_kernel<bfloat16>: D = rowsum(dO * O).
+//   3. flash_bwd_dkdv_mma_kernel: a block per 128 keys (a warp per 32 at
+//      d <= 64, per 16 above), 32-row query tiles by cp.async in a
+//      double-buffered ring; S^T, dP^T, dV and dK on mma.sync.m16n8k16, P^T
+//      and dS^T kept in registers as the next product's A operand.
+//   4. flash_bwd_dq_mma_kernel: a block per 128 query rows (a warp per 16),
+//      key tiles of 64: S, dP and dQ on mma.sync. Two passes, no atomics:
+//      every sum in a fixed order, the same bits every run.
+//
+// float32 (below, the first design), on the CUDA cores: flash_fwd_kernel,
+// flash_bwd_delta_kernel, flash_bwd_dkdv_kernel and flash_bwd_dq_kernel with
+// 64-row query and key tiles staged in shared memory, 256 threads as 16 x 16
+// (a thread owns a 4 x 4 patch of every 64 x 64 score tile and 4 rows x DP /
+// 16 columns of its accumulators, DP being d padded to 32, 64 or 128), every
+// product a float32 FMA from shared memory. K and V are stored transposed
+// where the product reads them along the key axis, one float of padding a
+// row keeping the transposing stores and the reads free of bank conflicts.
 //
 // Bound on the H100 (SXM, 700 W) at the shipped TransUNet's shape
 // (B, heads, N, d) = (8, 12, 1024, 64):
@@ -40,18 +45,20 @@
 //     0.385 ms at 67 TFLOP/s in float32 outside the tensor cores;
 //   backward: ~10 B h N^2 d = ~64.4 GFLOP (recomputing P and the products
 //     dP, dV, dK, dQ): 0.065 ms in bfloat16, 0.96 ms in float32.
-// The work is the products: bound by operations, not bytes. This first
-// design does them as float32 FMAs from shared memory (no tensor cores),
-// so its ceiling is the float32 rate in both types, and the separate dQ
-// pass recomputes S and dP (7 products in the backward where 5 would do).
-// What it does about the bound: every score tile lives in registers and
-// shared memory only, each K / V tile is read once per query tile (the
-// minimum of the tiled scheme), and a thread's 4 x 4 patch reuses each
-// operand it loads 4 times. Tensor cores (mma.sync, then wgmma with TMA)
-// are the next step toward the bfloat16 bound.
+// The work is the products: bound by operations, not bytes. The float32
+// design's ceiling is the float32 rate. The bfloat16 design runs every
+// product on the tensor cores (~0.09 ms forward, ~0.43 ms backward here, on
+// NVIDIA H100 80GB HBM3 at 700 W: PERF.md); what still holds it back: in
+// the forward the softmax's exp2 and float work per score (about as long as
+// the two products at d = 64) and one block an SM (no second block hides a
+// block's start and end); in the backward mma.sync (not wgmma) with
+// operands re-read by every warp through ldmatrix, and the separate dQ
+// pass that recomputes S and dP (7 products where 5 would do, the price of
+// determinism).
 #include <math.h>
 
 #include "common.cuh"
+#include "flash_attention_bf16.cuh"
 
 namespace {
 
@@ -483,41 +490,141 @@ bool valid_shape(int bh, int n, int d) {
   return bh > 0 && bh <= 65535 && n > 0 && d > 0 && d <= 128;
 }
 
-// The launches for d padded to DP = 32, 64 or 128.
-template <typename T>
-cudaError_t fwd_for_d(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                      int n, int d, float sm_scale, cudaStream_t s) {
-  if (d <= 32) return launch_fwd<T, 32>(q, k, v, o, lse, bh, n, d, sm_scale, s);
-  if (d <= 64) return launch_fwd<T, 64>(q, k, v, o, lse, bh, n, d, sm_scale, s);
-  return launch_fwd<T, 128>(q, k, v, o, lse, bh, n, d, sm_scale, s);
+// The float32 launches for d padded to DP = 32, 64 or 128.
+cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                    int n, int d, float sm_scale, cudaStream_t s) {
+  if (d <= 32) return launch_fwd<float, 32>(q, k, v, o, lse, bh, n, d, sm_scale, s);
+  if (d <= 64) return launch_fwd<float, 64>(q, k, v, o, lse, bh, n, d, sm_scale, s);
+  return launch_fwd<float, 128>(q, k, v, o, lse, bh, n, d, sm_scale, s);
 }
 
-template <typename T>
-cudaError_t bwd_for_d(const void* q, const void* k, const void* v, const void* o,
-                      const float* lse, const void* dout, float* delta, void* dq, void* dk,
-                      void* dv, int bh, int n, int d, float sm_scale, cudaStream_t s) {
+cudaError_t bwd_f32(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                    const void* dout, float* delta, void* dq, void* dk, void* dv, int bh, int n,
+                    int d, float sm_scale, cudaStream_t s) {
   if (d <= 32) {
-    return launch_bwd<T, 32>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, n, d, sm_scale, s);
+    return launch_bwd<float, 32>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, n, d, sm_scale, s);
   }
   if (d <= 64) {
-    return launch_bwd<T, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, n, d, sm_scale, s);
+    return launch_bwd<float, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, n, d, sm_scale, s);
   }
-  return launch_bwd<T, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, n, d, sm_scale, s);
+  return launch_bwd<float, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, n, d, sm_scale, s);
 }
+
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernels of flash_attention_bf16.cuh
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call: reached through the runtime's
+// entry-point query, so that the library needs no -lcuda. Null if missing.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status{};
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &status);
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (bh, n, d) bfloat16 tensor as a 3-D TMA map of boxes of 64 columns x
+// `rows` rows of one head, 128-byte swizzle; what lies past n or d reads as
+// zeros. Host-only (no device call, no allocation): safe under graph capture.
+bool encode_rows(CUtensorMap* map, const void* ptr, int bh, int n, int d, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(n) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem_bytes(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DP>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int bh, int n, int d, float sm_scale, cudaStream_t stream) {
+  namespace fb = sis::flash_bf16;
+  using C = fb::FwdCfg<DP>;
+  static const cudaError_t allowed = allow_smem_bytes(fb::flash_fwd_wgmma_kernel<DP>, C::kSmem);
+  if (allowed != cudaSuccess) return allowed;
+  CUtensorMap tq, tk, tv;
+  if (!encode_rows(&tq, q, bh, n, d, fb::kFwdRows) || !encode_rows(&tk, k, bh, n, d, C::kBN) ||
+      !encode_rows(&tv, v, bh, n, d, C::kBN)) {
+    return cudaErrorNotSupported;
+  }
+  const dim3 grid((n + fb::kFwdRows - 1) / fb::kFwdRows, bh);
+  fb::flash_fwd_wgmma_kernel<DP><<<grid, fb::kFwdThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n, d, sm_scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+                            const float* lse, const void* dout, float* delta, void* dq, void* dk,
+                            void* dv, int bh, int n, int d, float sm_scale, cudaStream_t stream) {
+  namespace fb = sis::flash_bf16;
+  using C = fb::BwdCfg<DP>;
+  using bf16 = __nv_bfloat16;
+  static const cudaError_t allowed_dkdv =
+      allow_smem_bytes(fb::flash_bwd_dkdv_mma_kernel<DP>, C::kDkdvSmem);
+  static const cudaError_t allowed_dq =
+      allow_smem_bytes(fb::flash_bwd_dq_mma_kernel<DP>, C::kDqSmem);
+  if (allowed_dkdv != cudaSuccess) return allowed_dkdv;
+  if (allowed_dq != cudaSuccess) return allowed_dq;
+  const long long rows = static_cast<long long>(bh) * n;
+  const int rows_per_block = kThreads / 32;
+  const auto delta_blocks = static_cast<unsigned int>((rows + rows_per_block - 1) / rows_per_block);
+  flash_bwd_delta_kernel<bf16><<<delta_blocks, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, rows, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + fb::kBwdRows - 1) / fb::kBwdRows, bh);
+  const float scale_log2 = sm_scale * kLog2e;
+  fb::flash_bwd_dkdv_mma_kernel<DP><<<grid, C::kDkdvThreads, C::kDkdvSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      n, d, scale_log2, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fb::flash_bwd_dq_mma_kernel<DP><<<grid, 32 * fb::kDqWarps, C::kDqSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), n, d, scale_log2,
+      sm_scale);
+  return cudaGetLastError();
+}
+
+// bfloat16 needs rows of a multiple of 16 bytes (TMA, 16-byte copies).
+bool valid_bf16_dim(int d) { return d % 8 == 0; }
 
 }  // namespace
 
 // o, lse = attention(q, k, v): (bh, n, d) tensors of `dtype`, lse (bh, n)
-// float32.
+// float32. bfloat16 runs the tensor-core kernels and needs d % 8 == 0.
 extern "C" int sis_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        void* lse, int bh, int n, int d, float sm_scale,
                                        int dtype, void* stream) {
   if (!valid_shape(bh, n, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == sis::kFloat32) return fwd_for_d<float>(q, k, v, o, l, bh, n, d, sm_scale, s);
-  if (dtype == sis::kBFloat16) {
-    return fwd_for_d<__nv_bfloat16>(q, k, v, o, l, bh, n, d, sm_scale, s);
+  if (dtype == sis::kFloat32) return fwd_f32(q, k, v, o, l, bh, n, d, sm_scale, s);
+  if (dtype == sis::kBFloat16 && valid_bf16_dim(d)) {
+    if (d <= 64) return launch_fwd_bf16<64>(q, k, v, o, l, bh, n, d, sm_scale, s);
+    return launch_fwd_bf16<128>(q, k, v, o, l, bh, n, d, sm_scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -533,10 +640,13 @@ extern "C" int sis_flash_attention_bwd(const void* q, const void* k, const void*
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == sis::kFloat32) {
-    return bwd_for_d<float>(q, k, v, o, l, dout, dl, dq, dk, dv, bh, n, d, sm_scale, s);
+    return bwd_f32(q, k, v, o, l, dout, dl, dq, dk, dv, bh, n, d, sm_scale, s);
   }
-  if (dtype == sis::kBFloat16) {
-    return bwd_for_d<__nv_bfloat16>(q, k, v, o, l, dout, dl, dq, dk, dv, bh, n, d, sm_scale, s);
+  if (dtype == sis::kBFloat16 && valid_bf16_dim(d)) {
+    if (d <= 64) {
+      return launch_bwd_bf16<64>(q, k, v, o, l, dout, dl, dq, dk, dv, bh, n, d, sm_scale, s);
+    }
+    return launch_bwd_bf16<128>(q, k, v, o, l, dout, dl, dq, dk, dv, bh, n, d, sm_scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,10 +10,11 @@ differ).
   forward within 1e-5 (flax's momentum 0.99 and biased variance);
 * `attention_impl="flash"` (the port's plain version on the CPU) against the
   JAX package's `impl="flash"` run in Pallas interpret mode, the JAX test's
-  own route (each flash `pallas_call` waited for: tests/pallas_interpret.py
-  says why): outputs within 2e-5, and gradients within 2e-4 of each leaf's
-  scale floored at 1 % of the global scale (the JAX test's rule: the key
-  bias's gradient is zero up to rounding on both sides);
+  own route (in a child process that dispatches synchronously:
+  tests/pallas_interpret.py says why): outputs within 2e-5, and gradients
+  within 2e-4 of each leaf's scale floored at 1 % of the global scale (the
+  JAX test's rule: the key bias's gradient is zero up to rounding on both
+  sides);
 * the flash guards (attention dropout, a token count not a multiple of 128);
 * one TransUNet step (0.5 * CE + 0.5 * Dice, SGD with momentum and weight
   decay at the schedule's first rate) against `make_transunet_train_step`:
@@ -41,6 +42,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax.traverse_util import flatten_dict, unflatten_dict
 
 from synthesis_in_style_tpu.models import trans_u_net as jax_tu
 from synthesis_in_style_tpu.models.ema_net import resize_bilinear_align_corners as jax_resize
@@ -57,7 +59,7 @@ from synthesis_in_style_tpu_torch.updaters.segmentation_updater import (
     transunet_train_step,
 )
 from synthesis_in_style_tpu_torch.utils.checkpoint import transunet_params_from_jax
-from pallas_interpret import synced_flash_interpret_mode
+from pallas_interpret import run_in_sync_child
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 NUM_CLASSES = 3
@@ -187,29 +189,45 @@ def test_one_channel_input_is_repeated(testing_vit):
         torch.testing.assert_close(net(x), net(x.repeat(1, 3, 1, 1)))
 
 
-def test_flash_matches_the_jax_flash_path_in_interpret_mode(monkeypatch):
-    """The JAX package's own flash test (testing config at 256px: 256
-    tokens, 2 classes, its init and input), against the port."""
-    size, classes = 256, 2
+def _jax_flash_path(x):
+    """The JAX package's own flash test's route at x's size (testing config,
+    2 classes, its init), run by `run_in_sync_child` in interpret mode: the
+    eval output and the gradients of sum(y^2) in train mode, with the
+    variables, flattened."""
+    size, classes = x.shape[1], 2
     model = jax_tu.VisionTransformer(config=vit_testing_config("flash"), img_size=size,
                                      num_classes=classes)
-    x = np.random.default_rng(0).normal(size=(1, size, size, 3)).astype(np.float32)
     variables = _jit_init(jax_tu.VisionTransformer(config=vit_testing_config(), img_size=size,
                                                    num_classes=classes), jnp.asarray(x))
-    with synced_flash_interpret_mode(monkeypatch):
-        ref = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
+    ref = model.apply(variables, jnp.asarray(x), train=False)
 
     def loss(params):
         y = model.apply({"params": params, "batch_stats": variables["batch_stats"]},
                         jnp.asarray(x), train=True, mutable=["batch_stats"])[0]
         return jnp.sum(y ** 2)
 
-    with synced_flash_interpret_mode(monkeypatch):
-        # un-jitted, as the JAX package's test runs it (under jit XLA fuses
-        # and rounds elsewhere: 3e-4 of the position embeddings' scale)
-        ref_grads = jax.grad(loss)(variables["params"])
-    numpy_vars = jax.tree_util.tree_map(np.asarray, dict(variables))
-    ref_grads = transunet_params_from_jax({"params": jax.tree_util.tree_map(np.asarray, ref_grads),
+    # un-jitted, as the JAX package's test runs it (under jit XLA fuses and
+    # rounds elsewhere: 3e-4 of the position embeddings' scale)
+    grads = jax.grad(loss)(variables["params"])
+    flat = {f"variables/{k}": v for k, v in flatten_dict(dict(variables), sep="/").items()}
+    flat.update({f"grads/{k}": v for k, v in flatten_dict(dict(grads), sep="/").items()})
+    return {"ref": ref, **flat}
+
+
+def _unflatten(flat, prefix):
+    return unflatten_dict({k[len(prefix) + 1:]: v for k, v in flat.items()
+                           if k.startswith(prefix + "/")}, sep="/")
+
+
+def test_flash_matches_the_jax_flash_path_in_interpret_mode(tmp_path):
+    """The JAX package's own flash test (testing config at 256px: 256
+    tokens, 2 classes, its init and input), against the port."""
+    size, classes = 256, 2
+    x = np.random.default_rng(0).normal(size=(1, size, size, 3)).astype(np.float32)
+    out = run_in_sync_child(_jax_flash_path, tmp_path, x=x)
+    ref = out["ref"]
+    numpy_vars = _unflatten(out, "variables")
+    ref_grads = transunet_params_from_jax({"params": _unflatten(out, "grads"),
                                            "batch_stats": numpy_vars["batch_stats"]})
 
     net = tu.VisionTransformer(vit_testing_config("flash"), size, classes)
