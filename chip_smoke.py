@@ -146,17 +146,21 @@
 12. TransUNet (configs/segmenter/stylegan2_trans_u_net_segmenter.yaml:
    R50-ViT-B_16 at 512px, 12 blocks of 12 heads over 1024 tokens, batch 8,
    bfloat16, SGD). Before the other phases, with TF32 off: the flash
-   attention kernels (csrc/flash_attention.cu: float32 FMAs; bfloat16 on the
-   tensor cores, csrc/flash_attention_bf16.cuh) against their plain version
+   attention kernels (csrc/flash_attention.cu, on the tensor cores:
+   float32 in 3xTF32, csrc/flash_attention_f32.cuh; bfloat16,
+   csrc/flash_attention_bf16.cuh) against their plain version
    at (8, 12, 1024, 64) (every training step and page batch; a short last
    batch of patches is padded to the batch), (4, 12, 1024, 64), (2, 2, 256,
    8), (1, 16, 128, 80) and (2, 12, 128, 64), and at N a multiple of no
    tile, (2, 2, 200, 64), (1, 4, 150, 128) and (1, 2, 257, 80), float32
-   and bfloat16, gradients through the autograd Function (float32 within 1e-5 / 1e-4 of
-   max|ref|, bfloat16 within 2^-7), two bfloat16 backward calls at the main
-   shape bitwise equal (the two-pass backward has no atomics), timed at the
-   main shape beside the plain version, the bound and
-   scaled_dot_product_attention. After the serving phase: the
+   and bfloat16, and in float32 alone at head dims of no multiple of 8,
+   (1, 3, 190, 36) and (2, 2, 130, 10); gradients through the autograd
+   Function (float32 within 1e-5 / 1e-4 of max|ref|, bfloat16 within
+   2^-7), two backward calls at the main shape bitwise equal in each dtype
+   (the two-pass backwards have no atomics), timed at the main shape beside
+   the plain version, the bound (float32: 3xTF32 at the TF32 rate, and on
+   FMAs) and scaled_dot_product_attention, whose kernels a profile names.
+   After the serving phase: the
    full-width network at 512px, batch 2, float32, TF32 off, on the card
    (flash) and on the CPU (plain), both against float64 on the card (eval
    logits within 1e-4; one step's gradients no further from float64 on the
@@ -173,7 +177,12 @@
    flash launches = (replays + 2 warm-ups) x launches a replay), pages/s
    fused in float32 and bfloat16, bfloat16 class maps >= 0.99 of float32's.
    The training runs also time the step alone on a batch on the card (10
-   steps, then one under torch.profiler).
+   steps, then one under torch.profiler), and then the same step in float32
+   (the updater's compute_dtype unset: flash and xla; the flash run's 12
+   forward and 12 backward launches a step counted from 0, none for xla;
+   the flash kernels' device time in the profiled step). The flash page
+   path profiles one float32 page (the float32 flash forward among its
+   kernels).
    Steps 5, 7 to 10, the GAN legs of 11 and the training and pages of 12 run
    with PyTorch's defaults (TF32 cuDNN convolutions, float32 matmuls).
 
@@ -1371,9 +1380,9 @@ def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
 
 PORT_KERNELS = ("bias_act_fwd_kernel", "bias_act_bwd_kernel", "blur_tail_kernel",
                 "cc_local_kernel", "cc_boundary_kernel", "cc_flatten_kernel",
-                "flash_fwd_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkdv_mma_kernel",
-                "flash_bwd_dq_mma_kernel")
+                "flash_fwd_split_kernel", "flash_bwd_delta_kernel",
+                "flash_bwd_dkdv_split_kernel", "flash_bwd_dq_split_kernel",
+                "flash_fwd_wgmma_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
 
 
 def profile_call(fn, top: int = 12) -> dict:
@@ -3112,6 +3121,7 @@ def capstone_phase(root: Path, fns: dict) -> dict:
 # training through the CLI with attention_impl flash and xla, page inference
 
 BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 TU_CONFIG = REPO_ROOT / "configs" / "segmenter" / "stylegan2_trans_u_net_segmenter.yaml"
 TU_OVERRIDES = {"max_iter": 16, "snapshot_save_iter": 16, "log_iter": 8}
 TU_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}
@@ -3124,10 +3134,14 @@ TU_CHECK_BATCH = 2
 FLASH_MAIN = (8, 12, 1024, 64)
 FLASH_SHAPES = (FLASH_MAIN, (4, 12, 1024, 64), (2, 2, 256, 8), (1, 16, 128, 80),
                 (2, 12, 128, 64))
-# N a multiple of no kernel's tile (float32: 64 rows and keys; bfloat16: 128
+# N a multiple of no kernel's tile (float32: 64-row blocks, 64-key forward
+# tiles, backward tiles of 64 rows or keys, 32 at d > 64; bfloat16: 128
 # query rows, 128 keys at d <= 64 and 64 above, 32-row dK / dV query tiles,
 # 64-key dQ tiles), so that the masks past N run, and d padded in each
 FLASH_RAGGED = ((2, 2, 200, 64), (1, 4, 150, 128), (1, 2, 257, 80))
+# float32 only (bfloat16 refuses d % 8 != 0): d a multiple of 4 but not of 8
+# (16-byte copies, d padded to 64) and d a multiple of neither (4-byte copies)
+FLASH_RAGGED_F32 = ((1, 3, 190, 36), (2, 2, 130, 10))
 # relative to max|ref|: float32 forward 1e-5 and backward 1e-4 (the sums run
 # in another order); bfloat16 2^-7, one rounding of the output on each side:
 # the kernels and the plain version compute in float32 from the same
@@ -3150,29 +3164,42 @@ def flash_counters() -> dict:
 def _flash_bound(shape, dtype, backward: bool) -> dict:
     """Forward: 4 B h N^2 d operations, q, k, v read and o written (and the
     float32 logsumexp); backward: 10 B h N^2 d (S recomputed, dP, dV, dK,
-    dQ), q, k, v, o, dO and the logsumexp read, dq, dk, dv written. The
-    operations run at the float32 rate or, in bfloat16, the tensor cores'."""
+    dQ), q, k, v, o, dO and the logsumexp read, dq, dk, dv written. bfloat16
+    runs them at the bfloat16 tensor-core rate; float32 at the TF32 rate,
+    three products each (3xTF32, the float32 kernels' route), with the bound
+    on float32 FMAs beside it as `fma_bound_ms`."""
     b, h, n, d = shape
     item = torch.finfo(dtype).bits // 8
     tensors = 8 if backward else 4
     nbytes = tensors * b * h * n * d * item + 4 * b * h * n
     nops = (10 if backward else 4) * b * h * n * n * d
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / rate * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"gflop": nops / 1e9, "mbytes": nbytes / 1e6}
+    if dtype == torch.bfloat16:
+        by_ops, kind = nops / BF16_OPS_PER_S * 1e3, "operations"
+    else:
+        by_ops, kind = 3 * nops / TF32_OPS_PER_S * 1e3, "operations (3xTF32)"
+        out["fma_bound_ms"] = max(by_bytes, nops / FP32_OPS_PER_S * 1e3)
     return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "gflop": nops / 1e9, "mbytes": nbytes / 1e6}
+            "bound_by": "bytes" if by_bytes >= by_ops else kind, **out}
+
+
+def _top_kernel_names(fn, top: int = 3) -> list:
+    """The names of the kernels with the most device time in one fn() call
+    under torch.profiler."""
+    return [k["name"] for k in profile_call(fn, top)["top_kernels"]]
 
 
 def check_flash_attention(detail) -> dict:
     """The flash forward and backward kernels against their plain versions
     on the card, TF32 off, at FLASH_SHAPES and FLASH_RAGGED in float32 and
-    bfloat16; the
-    gradients through the autograd Function (FlashAttentionFunction). At the
-    main shape two bfloat16 backward calls give the same bits, and each
-    kernel is timed (bench_ms; device time from torch.profiler) beside its
-    plain version, its bound and PyTorch's scaled_dot_product_attention
-    (forward; its backward through autograd)."""
+    bfloat16 and at FLASH_RAGGED_F32 in float32; the gradients through the
+    autograd Function (FlashAttentionFunction). At the main shape two
+    backward calls give the same bits in each dtype, and each kernel is
+    timed (bench_ms; device time from torch.profiler) beside its plain
+    version, its bound and PyTorch's scaled_dot_product_attention (forward;
+    its backward through autograd), whose kernels are named from a
+    profile."""
     import torch.nn.functional as F
 
     from synthesis_in_style_tpu_torch.ops.attention import flash_attention
@@ -3186,7 +3213,9 @@ def check_flash_attention(detail) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 13)
     worst = {"fwd": 0.0, "bwd": 0.0}
     rows = {"fwd": [], "bwd": []}
-    for shape, dtype in itertools.product(FLASH_SHAPES + FLASH_RAGGED, FLASH_TOLERANCES):
+    cases = list(itertools.product(FLASH_SHAPES + FLASH_RAGGED, FLASH_TOLERANCES))
+    cases += [(shape, torch.float32) for shape in FLASH_RAGGED_F32]
+    for shape, dtype in cases:
         tol_fwd, tol_bwd = FLASH_TOLERANCES[dtype]
         q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                        for _ in range(4))
@@ -3217,12 +3246,11 @@ def check_flash_attention(detail) -> dict:
                "lse_abs_err": errs["lse"], "tolerance": [tol_fwd, tol_bwd]}
         if tuple(shape) == FLASH_MAIN:
             o_k, lse_k = flash_attention_fwd_cuda(q, k, v, scale)
-            if dtype == torch.bfloat16:
-                first, second = (flash_attention_bwd_cuda(q, k, v, o_k, lse_k, do, scale)
-                                 for _ in range(2))
-                if not all(torch.equal(a, b) for a, b in zip(first, second)):
-                    raise AssertionError(f"flash backward {name}: two calls differ")
-                row["bwd_bitwise_repeatable"] = True
+            first, second = (flash_attention_bwd_cuda(q, k, v, o_k, lse_k, do, scale)
+                             for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"flash backward {name}: two calls differ")
+            row["bwd_bitwise_repeatable"] = True
             sdpa = [t.clone().requires_grad_(True) for t in (q, k, v)]
             sdpa_o = F.scaled_dot_product_attention(*sdpa, scale=scale)
 
@@ -3235,16 +3263,20 @@ def check_flash_attention(detail) -> dict:
             def sdpa_bwd():
                 torch.autograd.grad(sdpa_o, sdpa, do, retain_graph=True)
 
+            def sdpa_fwd():
+                F.scaled_dot_product_attention(q, k, v, scale=scale)
+
             rows["fwd"].append({**row, "ms": bench_ms(fwd), "device_ms": device_ms(fwd),
                                 "plain_ms": bench_ms(lambda: flash_attention_fwd_plain(
                                     q, k, v, scale)),
-                                "library_ms": bench_ms(lambda: F.scaled_dot_product_attention(
-                                    q, k, v, scale=scale)),
+                                "library_ms": bench_ms(sdpa_fwd),
+                                "library_kernels": _top_kernel_names(sdpa_fwd),
                                 **_flash_bound(shape, dtype, False)})
             rows["bwd"].append({**row, "ms": bench_ms(bwd), "device_ms": device_ms(bwd),
                                 "plain_ms": bench_ms(lambda: flash_attention_bwd_plain(
                                     q, k, v, o_k, lse_k, do, scale)),
                                 "library_ms": bench_ms(sdpa_bwd),
+                                "library_kernels": _top_kernel_names(sdpa_bwd),
                                 **_flash_bound(shape, dtype, True)})
             del sdpa_o
         detail.append(row)
@@ -3255,7 +3287,8 @@ def check_flash_attention(detail) -> dict:
         bf16 = next(r for r in rows[kind] if r["dtype"] == "bfloat16")
         out[f"flash_attention_{kind}"] = {
             **{key: f32[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by")},
+                                         "bound_ms", "bound_by", "fma_bound_ms",
+                                         "library_kernels")},
             **{f"bf16_{key}": bf16[key] for key in ("ms", "device_ms", "plain_ms",
                                                     "library_ms", "bound_ms")},
             "bf16_source": "synthesis_in_style_tpu_torch/csrc/flash_attention_bf16.cuh",
@@ -3263,9 +3296,11 @@ def check_flash_attention(detail) -> dict:
         detail.append({"kind": kind, "main_shape": rows[kind]})
         log(f"flash_attention_{kind} at {FLASH_MAIN}: float32 {f32['ms']:.4f} ms (device "
             f"{f32['device_ms']}, plain {f32['plain_ms']:.4f}, SDPA {f32['library_ms']:.4f}) "
-            f"against a bound of {f32['bound_ms']:.4f}; bfloat16 {bf16['ms']:.4f} ms (device "
-            f"{bf16['device_ms']}, plain {bf16['plain_ms']:.4f}, SDPA {bf16['library_ms']:.4f}) "
-            f"against {bf16['bound_ms']:.4f}")
+            f"against a bound of {f32['bound_ms']:.4f} in 3xTF32 ({f32['fma_bound_ms']:.4f} on "
+            f"FMAs); bfloat16 {bf16['ms']:.4f} ms (device {bf16['device_ms']}, plain "
+            f"{bf16['plain_ms']:.4f}, SDPA {bf16['library_ms']:.4f}) against "
+            f"{bf16['bound_ms']:.4f}; SDPA's kernels: float32 {f32['library_kernels']}, "
+            f"bfloat16 {bf16['library_kernels']}")
     return out
 
 
@@ -3478,9 +3513,10 @@ def transunet_training(root: Path, dataset: Path, impl: str, fns: dict) -> dict:
     if got != want:
         raise AssertionError(f"TransUNet ({impl}) flash launches {got}, expected {want} "
                              f"({forwards} forward passes, {iters} iterations)")
-    out.update(transunet_step_alone(trainer.updater, out["batch"],
-                                    json.loads(config.read_text())["image_size"]))
     settings = json.loads(config.read_text())
+    out.update(transunet_step_alone(trainer.updater, out["batch"], settings["image_size"]))
+    out["float32_step"] = transunet_float32_step(trainer.updater, out["batch"],
+                                                 settings["image_size"], impl, layers, fns)
     log(f"TransUNet training ({impl}, {settings['pretrained_model_name']} "
         f"{settings['image_size']}px, batch {out['batch']}, {settings.get('compute_dtype')}, "
         f"{iters} iterations): {out['images_per_s']:.2f} training images/s (train loop "
@@ -3488,11 +3524,17 @@ def transunet_training(root: Path, dataset: Path, impl: str, fns: dict) -> dict:
         f"{forwards} forward passes; launches {launches}; the step alone "
         f"{out['step_s']:.4f} s = {out['step_images_per_s']:.2f} images/s")
     prof = out["step_profile"]
-    log(f"profiled TransUNet step ({impl}): wall {prof['wall_s']:.4f} s, device busy "
-        f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
-        "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s" for k in prof["top_kernels"])
-        + "; the port's kernels: " + "; ".join(
-            f"{k} x{v['calls']} {v['device_s']:.6f} s" for k, v in prof["port_kernels"].items()))
+    f32 = out["float32_step"]
+    for what, prof in (("", out["step_profile"]), (" in float32", f32["step_profile"])):
+        log(f"profiled TransUNet step ({impl}){what}: wall {prof['wall_s']:.4f} s, device busy "
+            f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+            "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
+                      for k in prof["top_kernels"]) + "; the port's kernels: " + "; ".join(
+                f"{k} x{v['calls']} {v['device_s']:.6f} s"
+                for k, v in prof["port_kernels"].items()))
+    log(f"TransUNet step alone in float32 ({impl}): {f32['step_s']:.4f} s = "
+        f"{f32['step_images_per_s']:.2f} images/s; launches {f32['launches']}; the flash "
+        f"kernels' device time in the profiled step {f32['flash_device_s']:.6f} s")
     del trainer
     return out
 
@@ -3515,6 +3557,33 @@ def transunet_step_alone(updater, batch: int, size: int) -> dict:
     step_s = (time.perf_counter() - t0) / 10
     return {"step_s": step_s, "step_images_per_s": batch / step_s,
             "step_profile": profile_call(lambda: updater.step(on_card))}
+
+
+def transunet_float32_step(updater, batch: int, size: int, impl: str, layers: int,
+                           fns: dict) -> dict:
+    """The training step alone with the updater's compute_dtype unset
+    (float32 throughout, a setting the JAX package supports; the float32
+    flash kernels' backward runs on no other measured path), launch counts
+    from 0: `layers` forward and backward flash launches a step with flash,
+    none with xla; the flash kernels' device time in the profiled step."""
+    saved, updater.compute_dtype = updater.compute_dtype, None
+    for fn in fns.values():
+        fn.launches = 0
+    try:
+        out = transunet_step_alone(updater, batch, size)
+    finally:
+        updater.compute_dtype = saved
+    out["launches"] = {name: fn.launches for name, fn in fns.items()}
+    steps = 12  # transunet_step_alone: a warm-up, 10 timed, one profiled
+    want = layers * steps if impl == "flash" else 0
+    got = {name: out["launches"][name] for name in ("flash_attention_fwd", "flash_attention_bwd")}
+    if got != {"flash_attention_fwd": want, "flash_attention_bwd": want}:
+        raise AssertionError(f"TransUNet float32 step ({impl}): flash launches {got}, expected "
+                             f"{want} each over {steps} steps")
+    out["flash_device_s"] = sum(v["device_s"] for k, v in
+                                out["step_profile"].get("port_kernels", {}).items()
+                                if k.startswith("flash_"))
+    return out
 
 
 def transunet_page_path(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict,
@@ -3548,13 +3617,21 @@ def transunet_page_path(root: Path, snap: Path, pages: Path, pages_gt: Path, fns
         seg.segment_image_classes(image)
     _sync()
     rate = len(images) / (time.perf_counter() - t0)
+    prof = profile_call(lambda: seg.segment_image_classes(images[0]))
     out = {"cli_seconds": cli_seconds, "cli_pages": NUM_PAGES, "forward_passes": forwards.count,
            "launches": launches, "scores": scores, "pages_per_s": rate,
-           "patch": seg.patch_size, "batch": seg.batch_size}
+           "patch": seg.patch_size, "batch": seg.batch_size, "page_profile": prof}
     log(f"TransUNet page inference ({PAGE_W}x{PAGE_H}, patches {seg.patch_size}, batch "
         f"{seg.batch_size}, flash, 0.7 / 55, device filter): {rate:.3f} pages/s "
         f"(segment_image_classes, warm); analyze CLI {NUM_PAGES} pages in {cli_seconds:.3f} s, "
         f"{forwards.count} forward passes; launches {launches}")
+    if prof:
+        log(f"profiled TransUNet page (float32): wall {prof['wall_s']:.4f} s, device busy "
+            f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+            "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
+                      for k in prof["top_kernels"]) + "; the port's kernels: " + "; ".join(
+                f"{k} x{v['calls']} {v['device_s']:.6f} s"
+                for k, v in prof["port_kernels"].items()))
     del seg
     return out
 
@@ -3633,7 +3710,8 @@ def transunet_phase(root: Path, dataset: Path, pages: Path, pages_gt: Path, fns:
                                flash["layers"])
     page["serving"] = transunet_serving(Path(flash["snapshot"]), pages, fns, flash["layers"])
     log(f"TransUNet training images/s: flash {flash['images_per_s']:.2f}, xla "
-        f"{xla['images_per_s']:.2f}")
+        f"{xla['images_per_s']:.2f}; the float32 step alone: flash "
+        f"{flash['float32_step']['step_s']:.4f} s, xla {xla['float32_step']['step_s']:.4f} s")
     return {"network": network, "training_flash": flash,
             "training_xla": xla, "page": page}
 
@@ -3801,6 +3879,9 @@ def main() -> int:
                                                             "segmented_cc")),
             ("transunet_training_flash", transunet["training_flash"]["launches"],
              ("flash_attention_fwd", "flash_attention_bwd")),
+            ("transunet_float32_step_flash",
+             transunet["training_flash"]["float32_step"]["launches"],
+             ("flash_attention_fwd", "flash_attention_bwd")),
             ("transunet_page_inference", transunet["page"]["launches"],
              ("flash_attention_fwd", "segmented_cc"))):
         for name in needed:
@@ -3845,8 +3926,8 @@ def main() -> int:
                               "synthesis_in_style_tpu/ops/pallas/fused_blur.py:223"),
                "segmented_cc": ("csrc/segmented_cc.cu",
                                 "synthesis_in_style_tpu/ops/pallas/segmented_cc.py:158"),
-               "flash_attention_fwd": ("csrc/flash_attention.cu", flash_tpu.format(758)),
-               "flash_attention_bwd": ("csrc/flash_attention.cu",
+               "flash_attention_fwd": ("csrc/flash_attention_f32.cuh", flash_tpu.format(758)),
+               "flash_attention_bwd": ("csrc/flash_attention_f32.cuh",
                                        flash_tpu.format("1121 (bwd_dkv) and :1456 (bwd_dq)"))}
     rows = []
     for name, (src, tpu) in sources.items():
@@ -3864,6 +3945,10 @@ def main() -> int:
                    "capstone_chain": capstone["chain_launches"][name],
                    "transunet_training_flash": transunet["training_flash"]["launches"][name],
                    "transunet_training_xla": transunet["training_xla"]["launches"][name],
+                   "transunet_float32_step_flash":
+                       transunet["training_flash"]["float32_step"]["launches"][name],
+                   "transunet_float32_step_xla":
+                       transunet["training_xla"]["float32_step"]["launches"][name],
                    "transunet_page_inference": transunet["page"]["launches"][name]}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
@@ -3873,7 +3958,8 @@ def main() -> int:
                      "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
-                     **{key: k[key] for key in ("bf16_ms", "bf16_device_ms", "bf16_bound_ms",
+                     **{key: k[key] for key in ("fma_bound_ms", "library_kernels",
+                                                "bf16_ms", "bf16_device_ms", "bf16_bound_ms",
                                                 "bf16_plain_ms", "bf16_library_ms",
                                                 "bf16_source",
                                                 "page_ms", "page_plain_ms", "page_bound_ms")

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA tile
 // loads, warpgroup matrix multiplies (wgmma) and their shared-memory
-// descriptors, and the warp-level tensor-core path (ldmatrix, mma.sync,
-// cp.async). Used by the bfloat16 flash attention kernels
-// (flash_attention_bf16.cuh); nothing here launches anything.
+// descriptors, and the warp-level tensor-core path (ldmatrix, mma.sync in
+// bfloat16 and TF32, cp.async). Used by the flash attention kernels
+// (flash_attention_bf16.cuh, flash_attention_f32.cuh); nothing here
+// launches anything.
 #pragma once
 
 #include <cuda.h>
@@ -244,6 +245,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero: the
+// rounding of cvt.rna.tf32.f32, done as the float32 bits plus 0x1000 with
+// the low 13 cleared. Two integer instructions: cvt.rna.tf32.f32 itself
+// compiles to a longer compare-and-select sequence on sm_90a, and the float32
+// flash kernels ran 16-20 % slower with it (PERF.md). A NaN whose mantissa is
+// 0x7FF000 or more (CUDA's canonical 0x7FFFFFFF among them) wraps to -0: the
+// caller keeps the NaN in the low part x - hi.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// c (16 x 8 float32) += a (16 x 8 TF32) . b (8 x 8 TF32). Not volatile: the
+// compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -6,11 +6,13 @@ reaches with `attention_impl: flash`
 (synthesis_in_style_tpu/models/trans_u_net.py, `Attention.__call__`):
 jax.experimental.pallas.ops.tpu.flash_attention's forward and the `bwd_dkv`
 and `bwd_dq` kernels of its custom VJP. The CUDA kernels are in
-`csrc/flash_attention.cu`: in bfloat16 on the tensor cores (a wgmma forward
-fed by TMA, an mma.sync backward; `csrc/flash_attention_bf16.cuh`), in
-float32 as float32 FMAs. The autograd Function in ops/attention.py sends a
-CUDA tensor to a kernel (which raises rather than fall back) and a CPU tensor
-to the plain version.
+`csrc/flash_attention.cu`, all on the tensor cores: in bfloat16 a wgmma
+forward fed by TMA and an mma.sync backward (`csrc/flash_attention_bf16.cuh`),
+in float32 mma.sync in 3xTF32 (each operand split into a TF32 high and low
+part, three products: float32-class sums whatever
+torch.backends.cuda.matmul.allow_tf32 says; `csrc/flash_attention_f32.cuh`).
+The autograd Function in ops/attention.py sends a CUDA tensor to a kernel
+(which raises rather than fall back) and a CPU tensor to the plain version.
 
 Tensors are (B, heads, N, d), contiguous; d <= 128, and in bfloat16 a
 multiple of 8 (TMA moves rows of a multiple of 16 bytes). The forward returns

@@ -14,11 +14,17 @@ chip_smoke.py holds them against the plain version. Here:
   those roundings 37-46 % differ);
 * the autograd Function against autograd through softmax in float64, and
   in bfloat16 within one bfloat16 rounding;
-* a numpy emulation of the float32 kernels' tiling (64-row query and key
-  tiles, base-2 online softmax, the logsumexp in natural log, masked rows
-  and columns past N, D = rowsum(dO * O), the dK / dV pass over query
-  tiles and the dQ pass over key tiles) against the plain version at
-  ragged N and padded head dims, within 1e-5 of max|ref|;
+* a numpy emulation of the float32 kernels (3xTF32 on mma.sync): their
+  tiling (64-row blocks, 64-key forward tiles, backward tiles of 64 rows
+  or keys, 32 at d > 64, the base-2 online softmax, masks past N, D =
+  rowsum(dO * O)), the TF32 split bit for bit (hi rounded, lo = x - hi read
+  truncated by the mma), the three products in the kernels' order, each
+  mma's sum rounded toward zero as the tensor cores round it, each tile's
+  partial sums added by round-to-nearest, and the k order the fragments
+  give each operand (derived from the PTX layouts and the kernels' register
+  choices), against the plain version at ragged N and padded head dims
+  within 1e-5 of max|ref|; and, as a negative control, TF32 alone (hi * hi)
+  failing that gate;
 * a numpy emulation of the bfloat16 tensor-core kernels' tiling (128-row
   query blocks, 128- or 64-key tiles, d padded to 64 or 128, the dK / dV
   pass's 32-row query tiles and the dQ pass's 64-key tiles, P and dS
@@ -45,7 +51,6 @@ from synthesis_in_style_tpu_torch.ops.cuda import flash_attention as fa
 from pallas_interpret import run_in_sync_child
 
 SOURCE = Path(fa.__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
-TILE = 64
 LOG2E = 1.4426950408889634
 
 
@@ -159,86 +164,242 @@ def test_logsumexp_is_natural_log_in_float32():
 
 
 # ---------------------------------------------------------------------------
-# the kernels' tiling, emulated in float32 numpy
+# the float32 kernels (csrc/flash_attention_f32.cuh), emulated in numpy: the
+# tiling, the TF32 split bit for bit, the fragments' k order and the tensor
+# cores' accumulation
+
+F32_ROWS = 64  # query rows of a forward or dQ block, keys of a dK / dV block
+F32_FWD_KEYS = 64  # keys per K / V tile of the forward
+F32_CHUNK = 32  # columns of a tile's partial sums at a time
+# the kernels' order: a_hi b_lo, a_lo b_hi, a_hi b_hi
+THREE_PRODUCTS = (("hi", "lo"), ("lo", "hi"), ("hi", "hi"))
+
+# mma.m16n8k8 with TF32 operands (PTX ISA), lane = 4 g + t: what register i
+# of a lane holds, A as (row, k), B as (k, column), C as (row, column)
+_G, _T = np.arange(32) // 4, np.arange(32) % 4
+A_LAYOUT = ((_G, _T), (_G + 8, _T), (_G, _T + 4), (_G + 8, _T + 4))
+B_LAYOUT = ((_T, _G), (_T + 4, _G))
+C_LAYOUT = ((_G, 2 * _T), (_G, 2 * _T + 1), (_G + 8, 2 * _T), (_G + 8, 2 * _T + 1))
+# what the kernels put in those registers: load_a, (row, column) of a
+# row-major tile; c_to_a, which accumulator register; load_bt (B = X^T),
+# (row, column) of X; load_b (B = X), (row, column) of X
+A_FROM_TILE = ((_G, 2 * _T), (_G + 8, 2 * _T), (_G, 2 * _T + 1), (_G + 8, 2 * _T + 1))
+A_FROM_C = (0, 2, 1, 3)
+B_FROM_TILE_T = ((_G, 2 * _T), (_G, 2 * _T + 1))
+B_FROM_TILE = ((2 * _T, _G), (2 * _T + 1, _G))
 
 
-def _tile(x, start, n):
-    """Rows [start, start + 64) of x, zero rows past n."""
-    out = np.zeros((TILE, x.shape[1]), np.float32)
-    rows = x[start:min(start + TILE, n)]
-    out[:len(rows)] = rows
+def _k_order(pairs):
+    """For each k slot of an 8-deep step, the source column (of A) or row
+    (of B) the fragments put there: from (slot, source index, a check that
+    the other index matches) per register."""
+    order = np.full(8, -1)
+    for slot, index, same in pairs:
+        assert np.all(same)
+        order[slot] = index
+    assert sorted(order) == list(range(8))
+    return order
+
+
+A_TILE_ORDER = _k_order((A_LAYOUT[i][1], A_FROM_TILE[i][1], A_LAYOUT[i][0] == A_FROM_TILE[i][0])
+                        for i in range(4))
+A_C_ORDER = _k_order((A_LAYOUT[i][1], C_LAYOUT[A_FROM_C[i]][1],
+                      A_LAYOUT[i][0] == C_LAYOUT[A_FROM_C[i]][0]) for i in range(4))
+B_TILE_T_ORDER = _k_order((B_LAYOUT[i][0], B_FROM_TILE_T[i][1],
+                           B_LAYOUT[i][1] == B_FROM_TILE_T[i][0]) for i in range(2))
+B_TILE_ORDER = _k_order((B_LAYOUT[i][0], B_FROM_TILE[i][0], B_LAYOUT[i][1] == B_FROM_TILE[i][1])
+                        for i in range(2))
+
+
+def _tf32(x):
+    """hopper::to_tf32, cvt.rna.tf32.f32's rounding: the float32 bits plus
+    0x1000, the low 13 cleared (to nearest, ties away from zero)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_read(x):
+    """A TF32 operand as the tensor cores read a float32 register: its top
+    19 bits (truncated)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """The kernels' split: hi = x rounded to TF32, lo = x - hi (exact),
+    which the mma reads truncated."""
+    hi = _tf32(x)
+    return {"hi": hi, "lo": _tf32_read(x - hi)}
+
+
+def _toward_zero(x):
+    """float64 to float32, rounded toward zero."""
+    out = x.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(x)
+    out[over] = np.nextafter(out[over], np.float32(0))
     return out
 
 
-def emulate_forward(q, k, v, scale):
-    """flash_fwd_kernel for one (batch, head): (N, d) float32 arrays."""
+def _product(a, b, a_order, b_order, products=THREE_PRODUCTS):
+    """a @ b (a: (M, K), b: (K, N), K a multiple of 8) as the kernels'
+    mma.sync run it into a zeroed accumulator: k steps of 8 whose slots
+    take a's columns and b's rows in the fragments' orders, each operand
+    split into TF32 hi and lo, one mma per product of `products` in that
+    order, each the exact sum of its products and the accumulator rounded
+    toward zero (the tensor cores' rounding)."""
+    a_parts, b_parts = _split(a), _split(b)
+    c = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for pa, pb in products:
+            step = a_parts[pa][:, k0 + a_order].astype(np.float64) @ \
+                b_parts[pb][k0 + b_order].astype(np.float64)
+            c = _toward_zero(c + step)
+    return c
+
+
+def _head_dim_padded(d):
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def _bwd_tile(dp):
+    """Query rows (dK / dV) or keys (dQ) per tile of the backward."""
+    return 64 if dp <= 64 else 32
+
+
+def _rows(x, start, count, n, dp):
+    """Rows [start, start + count) of x, zeros past n and in the columns
+    past d up to dp (TMA's and cp.async's zero fill)."""
+    out = np.zeros((count, dp), np.float32)
+    rows = x[start:min(start + count, n)]
+    out[:len(rows), :x.shape[1]] = rows
+    return out
+
+
+def _values(x, start, count, n):
+    out = np.zeros(count, np.float32)
+    part = x[start:min(start + count, n)]
+    out[:len(part)] = part
+    return out
+
+
+def _fma(a, b, c):
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def emulate_forward(q, k, v, scale, products=THREE_PRODUCTS):
+    """flash_fwd_split_kernel for one (batch, head): (N, d) float32 arrays.
+    64-row blocks over 64-key tiles, d padded with zeros; S = Q K^T, the
+    base-2 online softmax (the maximum of the raw scores times the scale on
+    a full tile, the scale folded into one FMA before exp2), and each tile's
+    P V into zeroed partial sums of 32 columns added to O by FMA (O alpha +
+    P V); O times 1 / its weight sum, the logsumexp in natural log."""
     n, d = q.shape
+    dp = _head_dim_padded(d)
     o, lse = np.zeros((n, d), np.float32), np.zeros(n, np.float32)
     scale_log2 = np.float32(scale * LOG2E)
-    for m0 in range(0, n, TILE):
-        qt = _tile(q, m0, n)
-        m = np.full(TILE, -np.inf, np.float32)
-        l_sum = np.zeros(TILE, np.float32)
-        acc = np.zeros((TILE, d), np.float32)
-        for n0 in range(0, n, TILE):
-            kt, vt = _tile(k, n0, n), _tile(v, n0, n)
-            s = (qt @ kt.T) * scale_log2
-            s[:, n0 + np.arange(TILE) >= n] = -np.inf
-            m_new = np.maximum(m, s.max(1))
+    for m0 in range(0, n, F32_ROWS):
+        qt = _rows(q, m0, F32_ROWS, n, dp)
+        m = np.full(F32_ROWS, -np.inf, np.float32)
+        l_sum = np.zeros(F32_ROWS, np.float32)
+        acc = np.zeros((F32_ROWS, dp), np.float32)
+        for n0 in range(0, n, F32_FWD_KEYS):
+            kt, vt = _rows(k, n0, F32_FWD_KEYS, n, dp), _rows(v, n0, F32_FWD_KEYS, n, dp)
+            s = _product(qt, kt.T, A_TILE_ORDER, B_TILE_T_ORDER, products)
+            if scale_log2 > 0 and n0 + F32_FWD_KEYS <= n:
+                mx, a = s.max(1) * scale_log2, scale_log2
+            else:
+                s = np.where(n0 + np.arange(F32_FWD_KEYS) < n, s * scale_log2, -np.inf)
+                mx, a = s.max(1), np.float32(1)
+            m_new = np.maximum(m, mx)
             alpha = np.exp2(m - m_new)
-            p = np.exp2(s - m_new[:, None])
-            l_sum = l_sum * alpha + p.sum(1)
-            acc = acc * alpha[:, None] + p @ vt
+            p = np.exp2(_fma(s, a, -m_new[:, None].astype(np.float64)))
+            l_sum = l_sum * alpha + p.sum(1, dtype=np.float32)
+            for c0 in range(0, dp, F32_CHUNK):
+                pv = _product(p, vt[:, c0:c0 + F32_CHUNK], A_C_ORDER, B_TILE_ORDER, products)
+                acc[:, c0:c0 + F32_CHUNK] = _fma(acc[:, c0:c0 + F32_CHUNK], alpha[:, None], pv)
             m = m_new
-        rows = min(TILE, n - m0)
-        o[m0:m0 + rows] = (acc / l_sum[:, None])[:rows]
+        rows = min(F32_ROWS, n - m0)
+        o[m0:m0 + rows] = (acc * (np.float32(1) / l_sum)[:, None])[:rows, :d]
         lse[m0:m0 + rows] = ((m + np.log2(l_sum)) * np.float32(math.log(2)))[:rows]
     return o, lse
 
 
-def _probs_and_ds(qt, dot, kt, vt, lse2, delta, n0, n, scale_log2):
-    s = qt @ kt.T
-    p = np.exp2(s * scale_log2 - lse2[:, None])
-    p[:, n0 + np.arange(TILE) >= n] = 0.0
-    return p, p * (dot @ vt.T - delta[:, None])
-
-
 def emulate_backward(q, k, v, o, lse, do, scale):
-    """flash_bwd_delta, flash_bwd_dkdv and flash_bwd_dq for one (batch,
-    head)."""
+    """flash_bwd_delta, flash_bwd_dkdv_split and flash_bwd_dq_split for one
+    (batch, head): D = rowsum(dO * O); dK / dV blocks of 64 keys over
+    query tiles of 64 rows (32 at d > 64: S^T, dP^T, P^T and dS^T = P^T
+    (dP^T - D), each tile's P^T dO and dS^T Q into zeroed partial sums of 32
+    columns added to dV and dK), dK times the scale; dQ blocks of 64 query
+    rows over key tiles of 64 (32 at d > 64: S, dP, dS, dS K the same way),
+    dQ times the scale."""
     n, d = q.shape
-    scale_log2 = np.float32(scale * LOG2E)
-    delta = (do * o).sum(1).astype(np.float32)
+    dp = _head_dim_padded(d)
+    scale_log2, log2e = np.float32(scale * LOG2E), np.float32(LOG2E)
+    delta = (do * o).sum(1, dtype=np.float32)
     dq, dk, dv = (np.zeros((n, d), np.float32) for _ in range(3))
+    tile = _bwd_tile(dp)
 
-    def rows_of(m0):
-        valid = m0 + np.arange(TILE) < n
-        lse2 = np.full(TILE, np.inf, np.float32)
-        dl = np.zeros(TILE, np.float32)
-        lse2[valid] = lse[m0 + np.arange(TILE)[valid]] * np.float32(LOG2E)
-        dl[valid] = delta[m0 + np.arange(TILE)[valid]]
-        return lse2, dl
+    def chunked(x, y):  # x (rows, tile) as A from its accumulator, y (tile, dp) as B
+        return np.concatenate([_product(x, y[:, c0:c0 + F32_CHUNK], A_C_ORDER, B_TILE_ORDER)
+                               for c0 in range(0, dp, F32_CHUNK)], axis=1)
 
-    for n0 in range(0, n, TILE):  # dK, dV: one block per key tile
-        kt, vt = _tile(k, n0, n), _tile(v, n0, n)
-        dk_acc, dv_acc = np.zeros((TILE, d), np.float32), np.zeros((TILE, d), np.float32)
-        for m0 in range(0, n, TILE):
-            qt, dot = _tile(q, m0, n), _tile(do, m0, n)
-            p, ds = _probs_and_ds(qt, dot, kt, vt, *rows_of(m0), n0, n, scale_log2)
-            dv_acc += p.T @ dot
-            dk_acc += ds.T @ qt
-        rows = min(TILE, n - n0)
-        dk[n0:n0 + rows], dv[n0:n0 + rows] = (dk_acc * scale)[:rows], dv_acc[:rows]
-    for m0 in range(0, n, TILE):  # dQ: one block per query tile
-        qt, dot = _tile(q, m0, n), _tile(do, m0, n)
-        dq_acc = np.zeros((TILE, d), np.float32)
-        for n0 in range(0, n, TILE):
-            kt, vt = _tile(k, n0, n), _tile(v, n0, n)
-            _, ds = _probs_and_ds(qt, dot, kt, vt, *rows_of(m0), n0, n, scale_log2)
-            dq_acc += ds @ kt
-        rows = min(TILE, n - m0)
-        dq[m0:m0 + rows] = (dq_acc * scale)[:rows]
+    for n0 in range(0, n, F32_ROWS):  # dK, dV: a block per 64 keys
+        kt, vt = _rows(k, n0, F32_ROWS, n, dp), _rows(v, n0, F32_ROWS, n, dp)
+        dk_acc, dv_acc = np.zeros((F32_ROWS, dp), np.float32), np.zeros((F32_ROWS, dp), np.float32)
+        for m0 in range(0, n, tile):
+            qt, dot = _rows(q, m0, tile, n, dp), _rows(do, m0, tile, n, dp)
+            lse_t, delta_t = _values(lse, m0, tile, n), _values(delta, m0, tile, n)
+            st = _product(kt, qt.T, A_TILE_ORDER, B_TILE_T_ORDER)
+            dpt = _product(vt, dot.T, A_TILE_ORDER, B_TILE_T_ORDER)
+            pt = np.where(m0 + np.arange(tile) < n,
+                          np.exp2(st * scale_log2 - lse_t * log2e), np.float32(0))
+            dst = pt * (dpt - delta_t)
+            dv_acc += chunked(pt, dot)
+            dk_acc += chunked(dst, qt)
+        rows = min(F32_ROWS, n - n0)
+        dk[n0:n0 + rows] = (dk_acc * np.float32(scale))[:rows, :d]
+        dv[n0:n0 + rows] = dv_acc[:rows, :d]
+    for m0 in range(0, n, F32_ROWS):  # dQ: a block per 64 query rows
+        qt, dot = _rows(q, m0, F32_ROWS, n, dp), _rows(do, m0, F32_ROWS, n, dp)
+        rows = min(F32_ROWS, n - m0)
+        lse2 = np.full(F32_ROWS, np.inf, np.float32)
+        lse2[:rows] = lse[m0:m0 + rows] * log2e
+        dl = _values(delta, m0, F32_ROWS, n)
+        dq_acc = np.zeros((F32_ROWS, dp), np.float32)
+        for n0 in range(0, n, tile):
+            kt, vt = _rows(k, n0, tile, n, dp), _rows(v, n0, tile, n, dp)
+            s = _product(qt, kt.T, A_TILE_ORDER, B_TILE_T_ORDER)
+            dpm = _product(dot, vt.T, A_TILE_ORDER, B_TILE_T_ORDER)
+            p = np.where(n0 + np.arange(tile) < n,
+                         np.exp2(s * scale_log2 - lse2[:, None]), np.float32(0))
+            dq_acc += chunked(p * (dpm - dl[:, None]), kt)
+        dq[m0:m0 + rows] = (dq_acc * np.float32(scale))[:rows, :d]
     return dq, dk, dv
+
+
+def test_fragment_orders_agree_and_interleave_pairs():
+    """Every operand's k step puts index 2t in slot t and 2t + 1 in slot
+    t + 4: an accumulator's columns become the next A operand without a
+    shuffle, and the float2 loads read neighbouring columns."""
+    want = [0, 2, 4, 6, 1, 3, 5, 7]
+    for order in (A_TILE_ORDER, A_C_ORDER, B_TILE_T_ORDER, B_TILE_ORDER):
+        assert list(order) == want
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    # ties (2^-11 past a TF32 value) go away from zero, less than half down
+    x = np.array([1.0, 1 + 2.0**-11, 1 + 2.0**-10 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-12],
+                 np.float32)
+    np.testing.assert_array_equal(_tf32(x), np.array(
+        [1.0, 1 + 2.0**-10, 1 + 2.0**-9, -(1 + 2.0**-10), 1.0], np.float32))
+    rs = np.random.default_rng(4)
+    y = rs.standard_normal(10000).astype(np.float32)
+    parts = _split(y)
+    assert np.all(parts["hi"].view(np.uint32) & 0x1FFF == 0)
+    assert np.all(parts["lo"].view(np.uint32) & 0x1FFF == 0)
+    # hi alone keeps 11 of float32's 24 bits, hi + lo as the mma reads them 21
+    err = np.abs((parts["hi"].astype(np.float64) + parts["lo"]) - y) / np.abs(y)
+    assert err.max() < 2.0**-20 and np.abs(parts["hi"] - y).max() > 2.0**-14
 
 
 @pytest.mark.parametrize("n, d", [(64, 8), (150, 8), (128, 80), (257, 64), (3, 128)])
@@ -260,6 +421,22 @@ def test_tiling_emulation_matches_the_plain_version(n, d):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("head", [0, 1])
+def test_one_tf32_product_fails_the_float32_gate(head):
+    """Negative control: the same emulation with the hi * hi product alone
+    (plain TF32) lands far outside the float32 forward's gate (1e-5 of
+    max|ref|, chip_smoke.py) at (1, 2, 256, 64), so the gate tells 3xTF32
+    from TF32."""
+    q, k, v, _ = (a[0, head] for a in _inputs((1, 2, 256, 64), seed=6))
+    scale = 64 ** -0.5
+    ref_o, _ = fa.flash_attention_fwd_plain(*(torch.from_numpy(a) for a in (q, k, v)), scale)
+    tol = 1e-5 * ref_o.abs().max().item()
+    three, _ = emulate_forward(q, k, v, scale)
+    one, _ = emulate_forward(q, k, v, scale, products=(("hi", "hi"),))
+    assert np.abs(three - ref_o.numpy()).max() <= tol
+    assert np.abs(one - ref_o.numpy()).max() > 10 * tol
+
+
 # ---------------------------------------------------------------------------
 # the bfloat16 tensor-core kernels' tiling (csrc/flash_attention_bf16.cuh),
 # emulated in float32 numpy with bfloat16 rounding
@@ -278,15 +455,6 @@ def _bf16_tiles(d):
     """(DP, the forward's K / V tile)."""
     dp = 64 if d <= 64 else 128
     return dp, (128 if dp == 64 else 64)
-
-
-def _rows(x, start, count, n, dp):
-    """Rows [start, start + count) of x, zeros past n and in the columns
-    past d up to dp (TMA's and cp.async's zero fill)."""
-    out = np.zeros((count, dp), np.float32)
-    rows = x[start:min(start + count, n)]
-    out[:len(rows), :x.shape[1]] = rows
-    return out
 
 
 def emulate_bf16_forward(q, k, v, scale):
