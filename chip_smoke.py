@@ -25,7 +25,9 @@
    card against the same Functions on the CPU, first and second order.
 4. Runs every step of one training iteration (D, R1, G, path length, EMA)
    of the full-width 256px G and D at batch 2, float32, on the card and on
-   the CPU with the same draws, and holds the gradients of every parameter.
+   the CPU with the same draws, and holds the gradients of every parameter;
+   it logs each step's worst tensor and, for R1, how far the card and the
+   CPU each sit from a float64 run on the CPU.
 5. Cluster discovery on a randomly initialised 256px StyleGAN2 (seeded
    torch.Generator, the shipped stylegan_256px.yaml widths):
    `create_semantic_segmentation -n 100 -b 10 -c 6 9` (k = 6, 7, 8, all 14
@@ -183,8 +185,39 @@
    the flash kernels' device time in the profiled step). The flash page
    path profiles one float32 page (the float32 flash forward among its
    kernels).
-   Steps 5, 7 to 10, the GAN legs of 11 and the training and pages of 12 run
-   with PyTorch's defaults (TF32 cuDNN convolutions, float32 matmuls).
+13. The shipped swagan_* configurations, from GAN training to page
+   inference. Beside step 4, with TF32 off: one full-width 256px SWAGAN
+   iteration (D, R1, G, path length, EMA) at batch 2 in float32, card vs
+   CPU, gradients of every parameter; the blur tail of step 2 covers
+   SWAGAN's five upsample outputs ((8..64, 512) and (128, 256)). After
+   the TransUNet phase: `train_stylegan_2` on configs/stylegan/
+   swagan_256px.yaml (bfloat16) cut to batch 16, 8 iterations and a
+   snapshot at 8 (a warm-up run, then measured with launch counts from 0:
+   the bias-act forward and backward and the blur tail must run; one
+   iteration under torch.profiler; the bias-act forward at every (shape,
+   dtype) it launched); on that snapshot's g_ema, `create_semantic_
+   segmentation -n 32 -b 8 -c 6 9` over all 12 wavelet-space layers
+   (launch counts from 0), a label map for its k = 8 catalog, the dataset
+   path at batch 2 card vs CPU (generator and activations within 1e-3, the
+   device back half bit for bit) and the dataset CLI with configs/
+   dataset_creation/swagan_cluster_based_bw_hwp_wpi.json (--device-
+   contours, batch 16, 32 images; warm-up, then measured with launch
+   counts from 0); one full-width EMANet float32 step (ResNet-50, stride
+   8, 256px, batch 2, TF32 off, dropout off) on the card and on the CPU,
+   both against the same step in float64 on the card (eval logits within
+   1e-4; gradients, BatchNorm statistics and the new µ no further from
+   float64 on the card than twice the CPU's); `train` on configs/
+   segmenter/swagan_ema_net_segmenter.yaml (256px, batch 8, bfloat16) over
+   the SWAGAN pairs (a 2-iteration warm-up, then 16 iterations and a
+   validation pass with launch counts from 0; the step alone, 10 steps
+   and one profiled); and its snapshot on step 9's four 2048x1536 pages
+   at 0.7 / 55 (the analyze CLI with launch counts from 0, CC must run;
+   with TF32 off fused within 1e-5 of unfused; pages/s unfused, fused and
+   fused bfloat16, the bfloat16 class maps' agreement reported; one fused
+   page profiled).
+   Steps 5, 7 to 10, the GAN legs of 11, the training and pages of 12
+   and the paths of 13 run with PyTorch's defaults (TF32 cuDNN
+   convolutions, float32 matmuls).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
@@ -246,6 +279,16 @@ MIXED_SIZES shrunk so that two pages share a bucket of the patch size,
 e.g. 192x160 and 180x150 at 64-px patches, and seeded_page_network giving
 a small network for pages under 256 px; ~45 s both). On the CPU the
 page programs run eagerly, so no graph is captured and no replay counted.
+The swagan_* phase's dataset half rehearses with DEVICE = "cpu":
+`swagan_dataset(root, snapshot, fns)` on a seeded SWAGAN g_ema with
+SWAGAN_CONFIG at image_size 32, latent_size 32, n_mlp 2, SWAGAN_CREATION a
+file naming its layers 2 3 / 4 5, BATCH 8, NUM_IMAGES 8 and
+SWAGAN_DISCOVERY (8, 8, (8, 9)) (~20 s; it skips the card-vs-CPU batch,
+which needs 256 px); its EMANet half with EMANET_OVERRIDES and
+EMANET_WARMUP at image_size 64, batch 2, num_workers 0, EMANET_CHECK_BATCH
+1, profile_call stubbed, PAGE_H / PAGE_W / NUM_PAGES shrunk:
+`check_emanet_card_vs_cpu()`, `emanet_training(root, pairs, fns)` and
+`emanet_pages(root, snap, pages, gt, fns)` (~2 min).
 So does the capstone phase: `capstone_phase(root, fns)` with DEVICE =
 "cpu", CAPSTONE_WIDTHS giving both legs a small generator (latent_size 32,
 n_mlp 2, batch_size 4, image_size 16 / 32), small CAPSTONE_*_CUTS and
@@ -583,6 +626,8 @@ def check_fused_bias_act_bwd(detail):
             "max_abs_err": worst}
 
 
+# StyleGAN2's six upsample outputs at 256px, and SWAGAN's (its pyramid ends
+# one octave lower): (8..64, 512) shared, (128, 256) SWAGAN's last
 BLUR_SHAPES = ((8, 512), (16, 512), (32, 512), (64, 512), (128, 256), (256, 128))
 
 
@@ -801,22 +846,25 @@ def make_run_dir(root: Path) -> Path:
     return run
 
 
-def write_catalog(run: Path, gen) -> None:
+def write_catalog(run: Path, gen, config=None, creation=None) -> None:
     """merged_classes_<k>.json for catalogs/<k>.npz of the discovery phase
     (the port's own fit): two clusters (the same size ranks in every layer)
-    printed and handwritten text, the rest background."""
+    printed and handwritten text, the rest background. `config` and
+    `creation` default to CONFIG_256 and CREATION_CONFIG."""
     import numpy as np
+
+    config, creation = config or CONFIG_256, creation or CREATION_CONFIG
 
     from synthesis_in_style_tpu_torch.segmentation.factor_catalog import load_catalogs
 
     sem = run / "semantic_segmentation"
     catalog = load_catalogs(sem / "catalogs" / f"{NUM_CLUSTERS}.npz")
     g = torch.Generator().manual_seed(SEED + 3)
-    z = torch.randn((BATCH, CONFIG_256["latent_size"]), generator=g).to(DEVICE)
+    z = torch.randn((BATCH, config["latent_size"]), generator=g).to(DEVICE)
     with torch.no_grad():
         _, acts = gen([z], randomize_noise=False, return_intermediate_activations=True)
-    layers = CREATION_CONFIG["keys_for_class_determination"] + \
-        CREATION_CONFIG["keys_for_finegrained_segmentation"]
+    layers = creation["keys_for_class_determination"] + \
+        creation["keys_for_finegrained_segmentation"]
     sizes = {}
     for layer in layers:
         assign = catalog[layer].predict(acts[int(layer)]).reshape(-1)
@@ -840,8 +888,8 @@ def write_catalog(run: Path, gen) -> None:
 
     map_file = sem / f"merged_classes_{NUM_CLUSTERS}.json"
     map_file.write_text(json.dumps(label_map(0, 1)))
-    seg = get_dataset_segmenter(argparse.Namespace(num_clusters=NUM_CLUSTERS), CREATION_CONFIG,
-                                CONFIG_256["image_size"], sem, DEVICE)
+    seg = get_dataset_segmenter(argparse.Namespace(num_clusters=NUM_CLUSTERS), creation,
+                                config["image_size"], sem, DEVICE)
     acts = {str(k): v for k, v in acts.items() if str(k) in seg.catalog}
     best = None
     for p_rank in range(5):
@@ -886,23 +934,25 @@ def counters():
             "segmented_cc": connected_components_cuda, **flash_counters()}
 
 
-def reference_check(run: Path) -> torch.Tensor:
+def reference_check(run: Path, config=None, creation=None) -> torch.Tensor:
     """Full-width port on the card against the same port on the CPU (plain
-    versions), batch 2, TF32 off. Returns the first CC input of the card's
-    back half at the path's batch (for the CC kernel phase)."""
+    versions), batch 2, TF32 off (`config` and `creation` default to
+    CONFIG_256 and CREATION_CONFIG). Returns the first CC input of the
+    card's back half at the path's batch (for the CC kernel phase)."""
     from synthesis_in_style_tpu_torch.cli.create_dataset_for_segmentation import (
         get_dataset_segmenter,
     )
     from synthesis_in_style_tpu_torch.models.factory import load_generator
     from synthesis_in_style_tpu_torch.segmentation.device_cc import dilate_cross, fill_holes
 
+    config, creation = config or CONFIG_256, creation or CREATION_CONFIG
     ckpt = run / "checkpoints" / "g_ema.pt"
     args = argparse.Namespace(num_clusters=NUM_CLUSTERS)
     z = torch.randn((BATCH, 512), generator=torch.Generator().manual_seed(SEED + 4))
     out = {}
     for device in ("cuda", "cpu"):
-        gen = load_generator(ckpt, CONFIG_256, device=device)
-        seg = get_dataset_segmenter(args, CREATION_CONFIG, 256, run / "semantic_segmentation",
+        gen = load_generator(ckpt, config, device=device)
+        seg = get_dataset_segmenter(args, creation, 256, run / "semantic_segmentation",
                                     device)
         zz = z[:2] if device == "cpu" else z
         with torch.no_grad():
@@ -937,13 +987,15 @@ def reference_check(run: Path) -> torch.Tensor:
     log(f"device_segment card vs CPU: bit-identical, painted share "
         f"{(idx_h > 0).float().mean().item():.4f}")
     fine = torch.stack([masks_c[(layer, "printed_text")]
-                        for layer in CREATION_CONFIG["keys_for_finegrained_segmentation"]])
+                        for layer in creation["keys_for_finegrained_segmentation"]])
     return fill_holes(dilate_cross(fine.reshape(-1, 256, 256)))
 
 
-def drive_path(run: Path, save_to: Path, device_contours: bool = True, workers: int = 0) -> dict:
-    """The dataset CLI on the card: build_dataset timed (warm kernels), then
-    the train/val split and coco_gt.json."""
+def drive_path(run: Path, save_to: Path, device_contours: bool = True, workers: int = 0,
+               creation=None) -> dict:
+    """The dataset CLI on the card with `creation` (CREATION_CONFIG by
+    default): build_dataset timed (warm kernels), then the train/val split
+    and coco_gt.json."""
     from synthesis_in_style_tpu_torch.cli import create_dataset_for_segmentation as cds
 
     argv = [str(run / "checkpoints" / "g_ema.pt"), str(run / "creation_config.json"),
@@ -956,7 +1008,7 @@ def drive_path(run: Path, save_to: Path, device_contours: bool = True, workers: 
     args = cds.build_parser().parse_args(argv)
     _sync()
     t0 = time.perf_counter()
-    written = cds.build_dataset(args, CREATION_CONFIG)
+    written = cds.build_dataset(args, creation or CREATION_CONFIG)
     _sync()
     seconds = time.perf_counter() - t0
     args.only_create_train_val_split = True
@@ -1186,16 +1238,18 @@ def host_vs_device(run: Path, masks: dict) -> dict:
     return out
 
 
-def check_outputs(save_to: Path) -> int:
+def check_outputs(save_to: Path, size: int = 0) -> int:
+    """The dataset path's [image | label] pairs (`size` px, CONFIG_256's by
+    default) and its train/val split."""
     from synthesis_in_style_tpu_torch.utils.png import read_png
 
+    size = size or CONFIG_256["image_size"]
     pngs = sorted(save_to.glob("**/*.png"))
     if len(pngs) < NUM_IMAGES:
         raise AssertionError(f"{len(pngs)} PNGs written, expected >= {NUM_IMAGES}")
     painted = 0
     for png in pngs:
         pair = read_png(png)
-        size = CONFIG_256["image_size"]
         if pair.shape != (size, 2 * size, 3):
             raise AssertionError(f"{png}: shape {pair.shape}")
         painted += int((pair[:, size:] != 0).any())
@@ -1223,9 +1277,10 @@ class GradRecorder:
         self.grads = dict(zip(self.names, grads))
 
 
-def check_training_iteration(detail) -> float:
+def check_training_iteration(detail, config=None) -> float:
     """Every step of one training iteration (D, R1, G, path length, EMA) of
-    the full-width 256px G and D at batch 2, float32, TF32 off, with the same
+    the full-width 256px G and D (`config`'s variant: StyleGAN2 by default,
+    SWAGAN with SWAGAN_CONFIG) at batch 2, float32, TF32 off, with the same
     draws: the card's gradients of every parameter against the CPU's
     (plain versions), max abs difference <= 1e-3 x max|ref|, the largest
     reference gradient of the step.
@@ -1238,11 +1293,13 @@ def check_training_iteration(detail) -> float:
         g_reg_step, g_step,
     )
 
+    config = config or CONFIG_256
+    size, variant = config["image_size"], config["stylegan_variant"]
     g = torch.Generator().manual_seed(SEED + 5)
-    gen = get_generator(CONFIG_256).init_weights(g)
-    disc = get_discriminator(CONFIG_256).init_weights(g)
+    gen = get_generator(config).init_weights(g)
+    disc = get_discriminator(config).init_weights(g)
     cfg = StyleGAN2Config(freeze_noise_layers=tuple(range(6)))
-    real = torch.rand((2, 256, 256, 3), generator=g) * 2 - 1
+    real = torch.rand((2, size, size, 3), generator=g) * 2 - 1
     draws = {"d_step": draw_mix(g, gen, 2, cfg), "g_step": draw_mix(g, gen, 2, cfg),
              "g_reg_step": draw_path(g, gen, 2, cfg)}
 
@@ -1269,6 +1326,11 @@ def check_training_iteration(detail) -> float:
         grads[device] = {"d_step": d_grads, "d_reg_step": r1_grads, "g_step": g_grads,
                          "g_reg_step": pl_grads}
         grads[device]["metrics"] = {k: float(v) for k, v in metrics.items()}
+    # R1 in float64 on the CPU: how far each float32 run is from it
+    state = GANTrainState(None, copy.deepcopy(disc).double(), None, None, GradRecorder(disc),
+                          None)
+    d_reg_step(state, cfg, real.double())
+    r1_float64 = state.d_optimizer.grads
     for step in ("d_step", "g_step"):  # these reach every parameter
         modules = {}
         for name, grad in grads["cuda"][step].items():
@@ -1293,23 +1355,35 @@ def check_training_iteration(detail) -> float:
         # the loss (R1 through conv_in's bias: only via minibatch stddev)
         # has a gradient that is all rounding
         scale = max(ref.abs().max().item() for _, _, ref in pairs)
-        step_worst, tensor_worst = 0.0, 0.0
-        for name, got, ref in pairs:
-            err = (got - ref).abs().max().item()
+        errs = [((got - ref).abs().max().item(), name, ref) for name, got, ref in pairs]
+        tensor_worst = 0.0
+        for err, name, ref in errs:
             if not err <= tol * scale:
                 raise AssertionError(f"{step} {name}: card vs CPU {err} > {tol} x {scale}")
-            step_worst = max(step_worst, err / scale)
             ref_max = ref.abs().max().item()
             tensor_worst = max(tensor_worst, err / ref_max if ref_max else 0.0)
-        detail.append({"step": step, "max_err_over_max_ref": step_worst,
-                       "worst_per_tensor_rel_err": tensor_worst, "tolerance": tol})
+        step_err, worst_name, _ = max(errs, key=lambda e: e[0])
+        step_worst = step_err / scale
+        row = {"variant": variant, "step": step, "max_err_over_max_ref": step_worst,
+               "worst_tensor": worst_name, "worst_per_tensor_rel_err": tensor_worst,
+               "tolerance": tol}
+        if step == "d_reg_step":  # the same tensor, each float32 run against float64
+            exact = r1_float64[worst_name]
+            scale64 = max(v.abs().max().item() for v in r1_float64.values() if v is not None)
+            row.update({f"{where}_vs_float64_over_max_ref":
+                        (grads[device][step][worst_name].cpu().double() - exact).abs().max().item()
+                        / scale64 for where, device in (("card", "cuda"), ("cpu", "cpu"))})
+            row["worst_tensor_max_over_max_ref"] = exact.abs().max().item() / scale64
+        detail.append(row)
+        log(f"  {step}: card vs CPU {step_worst:.3g} of max|ref|, worst tensor {worst_name}" +
+            "".join(f", {k} {v:.3g}" for k, v in row.items() if "float64" in k or "tensor_max" in k))
         worst = max(worst, step_worst)
     for key, ref in grads["cpu"]["metrics"].items():
         got = grads["cuda"]["metrics"][key]
         if not abs(got - ref) <= 1e-3 * max(1.0, abs(ref)):
             raise AssertionError(f"{key}: card {got} vs CPU {ref}")
-    log(f"training iteration 256px batch 2 card vs CPU: gradients max rel err {worst:.3g}; "
-        f"metrics {grads['cuda']['metrics']}")
+    log(f"training iteration (variant {variant}) {size}px batch 2 card vs CPU: gradients max "
+        f"rel err {worst:.3g}; metrics {grads['cuda']['metrics']}")
     return worst
 
 
@@ -1345,10 +1419,11 @@ def write_training_pages(root: Path) -> Path:
     return data
 
 
-def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
-    """One run of the training CLI on the card. With `step_seconds` (a
-    dict), every step call is bracketed by synchronizes and its seconds
-    appended under its name."""
+def run_training_cli(data: Path, log_dir: Path, step_seconds=None,
+                     config_name: str = "config.json"):
+    """One run of the training CLI on the card with `data`/`config_name`.
+    With `step_seconds` (a dict), every step call is bracketed by
+    synchronizes and its seconds appended under its name."""
     from synthesis_in_style_tpu_torch.cli import train_stylegan_2 as cli
     from synthesis_in_style_tpu_torch.updaters import stylegan2_updater as upd
 
@@ -1366,7 +1441,7 @@ def run_training_cli(data: Path, log_dir: Path, step_seconds=None):
         for name, fn in originals.items():
             setattr(upd, name, timed(name, fn))
     try:
-        argv = [str(data / "config.json"), "--images", str(data / "train.json"),
+        argv = [str(data / config_name), "--images", str(data / "train.json"),
                 "-l", str(log_dir), "-d", "cuda"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1505,9 +1580,10 @@ def run_segmenter_training(dataset: Path, config: Path, log_dir: Path):
     return trainer, time.perf_counter() - t0
 
 
-def check_segmenter_run(trainer, log_dir: Path) -> Path:
+def check_segmenter_run(trainer, log_dir: Path, max_iter: int = 0) -> Path:
     """Finite losses, a validation pass in the log, parameters moved from
-    the seeded init, and the snapshot; returns the snapshot's path."""
+    the seeded init, and the snapshot at `max_iter` (SEG_OVERRIDES' by
+    default); returns the snapshot's path."""
     run = log_dir / "run"
     lines = [json.loads(line) for line in (run / "log.jsonl").read_text().splitlines()]
     losses = [line["loss/softmax"] for line in lines if "loss/softmax" in line]
@@ -1520,12 +1596,13 @@ def check_segmenter_run(trainer, log_dir: Path) -> Path:
         torch.Generator().manual_seed(0))
     moved = sum(not torch.equal(a, b.cpu()) for a, b in
                 zip(fresh.parameters(), trainer.updater.network.parameters()))
+    name = type(fresh).__name__
     if moved == 0:
-        raise AssertionError("DocUFCN: no parameter moved")
-    snap = run / "checkpoints" / f"iter_{SEG_OVERRIDES['max_iter']:08d}.pt"
+        raise AssertionError(f"{name}: no parameter moved")
+    snap = run / "checkpoints" / f"iter_{max_iter or SEG_OVERRIDES['max_iter']:08d}.pt"
     if not snap.exists():
         raise AssertionError(f"no snapshot {snap}")
-    log(f"DocUFCN: {moved} of {len(list(fresh.parameters()))} parameter tensors moved; "
+    log(f"{name}: {moved} of {len(list(fresh.parameters()))} parameter tensors moved; "
         f"losses {losses}; validation {evals[0]}")
     return snap
 
@@ -2390,13 +2467,20 @@ SELECT_SAMPLES, SELECT_BATCH = 32, 8
 STATS_LAYER, STATS_K = "12", 8  # 256px, 128 channels
 
 
-def run_discovery(run: Path, destination: str, extra=()) -> dict:
-    """The discovery CLI on DEVICE, timed end to end; its summary, with
-    each fit's report under "fits"."""
+def _discovery_sizes(sizes=None) -> tuple:
+    """(-n, -b, (first k, last k + 1)) of the discovery CLI: `sizes`, or
+    DISCOVERY_SAMPLES, DISCOVERY_BATCH and DISCOVERY_RANGE."""
+    return sizes or (DISCOVERY_SAMPLES, DISCOVERY_BATCH, DISCOVERY_RANGE)
+
+
+def run_discovery(run: Path, destination: str, extra=(), sizes=None) -> dict:
+    """The discovery CLI on DEVICE at `sizes` (`_discovery_sizes`), timed
+    end to end; its summary, with each fit's report under "fits"."""
     from synthesis_in_style_tpu_torch.cli import create_semantic_segmentation as css
 
-    argv = [str(run / "checkpoints" / "g_ema.pt"), "-n", str(DISCOVERY_SAMPLES),
-            "-b", str(DISCOVERY_BATCH), "-c", *map(str, DISCOVERY_RANGE),
+    samples, batch, ks = _discovery_sizes(sizes)
+    argv = [str(run / "checkpoints" / "g_ema.pt"), "-n", str(samples),
+            "-b", str(batch), "-c", *map(str, ks),
             "--destination", destination, "-d", DEVICE, *extra]
     _sync()
     t0 = time.perf_counter()
@@ -2406,16 +2490,19 @@ def run_discovery(run: Path, destination: str, extra=()) -> dict:
     return {**report, "fits": fits, "cli_s": time.perf_counter() - t0}
 
 
-def check_discovery_artifacts(sem: Path, num_layers: int) -> dict:
+def check_discovery_artifacts(sem: Path, num_layers: int, size: int = 0,
+                              sizes=None) -> dict:
     """catalogs/<k>.npz hold `num_layers` unit-norm centres_ arrays with
     matching counts_; cluster_labels (int32 NHW), cluster_arrays (uint8
-    NCHW) and cluster_images/<k>.png have the JAX CLI's shapes."""
+    NCHW) and cluster_images/<k>.png have the JAX CLI's shapes (images of
+    `size` px, CONFIG_256's by default; `sizes` as for run_discovery)."""
     import numpy as np
     from PIL import Image
 
-    size, n = CONFIG_256["image_size"], DISCOVERY_SAMPLES
+    size = size or CONFIG_256["image_size"]
+    n, _, ks = _discovery_sizes(sizes)
     shapes = {}
-    for k in range(*DISCOVERY_RANGE):
+    for k in range(*ks):
         with np.load(sem / "catalogs" / f"{k}.npz") as cat, \
                 np.load(sem / "cluster_labels" / f"{k}.npz") as labels, \
                 np.load(sem / "cluster_arrays" / f"{k}.npz") as arrays:
@@ -3717,6 +3804,363 @@ def transunet_phase(root: Path, dataset: Path, pages: Path, pages_gt: Path, fns:
 
 
 
+# ---------------------------------------------------------------------------
+# the shipped swagan_* path: SWAGAN training -> discovery -> labelled
+# synthesis -> EMANet training -> EMANet pages
+
+SWAGAN_TRAIN_CONFIG = REPO_ROOT / "configs" / "stylegan" / "swagan_256px.yaml"
+SWAGAN_CREATION = REPO_ROOT / "configs" / "dataset_creation" / \
+    "swagan_cluster_based_bw_hwp_wpi.json"
+SWAGAN_CONFIG = {  # configs/stylegan/swagan_256px.yaml's generator, as JSON
+    "image_size": 256, "latent_size": 512, "n_mlp": 8, "channel_multiplier": 2,
+    "stylegan_variant": "swagan",
+}
+SWAGAN_DISCOVERY = (32, 8, (6, 9))  # -n 32 -b 8 -c 6 9
+EMANET_CONFIG = REPO_ROOT / "configs" / "segmenter" / "swagan_ema_net_segmenter.yaml"
+EMANET_OVERRIDES = {"max_iter": 16, "snapshot_save_iter": 16, "log_iter": 8}
+EMANET_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}
+EMANET_CHECK_BATCH = 2
+
+
+def _launches(fns: dict) -> dict:
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _zero(fns: dict) -> None:
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def swagan_training(data: Path, root: Path, fns: dict) -> dict:
+    """`train_stylegan_2` on the shipped swagan_256px.yaml (bfloat16, its
+    regularization) cut to TRAIN_OVERRIDES (batch 16, 8 iterations, a
+    snapshot at 8) over the training pages: a warm-up run, a measured run
+    with launch counts from 0 (the bias-act forward and backward and the
+    blur tail must run) and the bias-act shapes it launched, then one
+    iteration under torch.profiler."""
+    import yaml
+
+    config = {**yaml.safe_load(SWAGAN_TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES}
+    (data / "swagan_config.json").write_text(json.dumps(config))
+    log(f"SWAGAN training: {SWAGAN_TRAIN_CONFIG.name} cut to {TRAIN_OVERRIDES}")
+    run_training_cli(data, root / "swagan_train_warmup", config_name="swagan_config.json")
+    _zero(fns)
+    fns["fused_bias_act"].shapes.clear()
+    trainer, wall = run_training_cli(data, root / "swagan_train", config_name="swagan_config.json")
+    launches = _launches(fns)
+    shapes = dict(fns["fused_bias_act"].shapes)
+    from synthesis_in_style_tpu_torch.models import swagan
+
+    if not isinstance(trainer.updater.state.generator, swagan.Generator):
+        raise AssertionError("the swagan config did not train a SWAGAN generator")
+    losses = check_training_run(trainer, root / "swagan_train")
+    iters = trainer.updater.iteration
+    (run,) = (root / "swagan_train" / "stylegan2").iterdir()
+    snapshot = run / "checkpoints" / f"iter_{TRAIN_OVERRIDES['max_iter']:08d}.pt"
+    profile = profile_iteration(trainer)
+    out = {"iterations": iters, "batch": config["batch_size"], "loop_seconds": trainer.seconds,
+           "cli_seconds": wall, "images_per_s": iters * config["batch_size"] / trainer.seconds,
+           "launches": launches, "losses": losses, "profile": profile,
+           "snapshot": str(snapshot), "bias_act_shapes": shapes}
+    log(f"SWAGAN training path (256px, batch {config['batch_size']}, bf16, {iters} "
+        f"iterations): {out['images_per_s']:.2f} training images/s (train loop "
+        f"{trainer.seconds:.3f} s, whole CLI {wall:.3f} s, warm); launches {launches}")
+    log(f"profiled SWAGAN iteration {profile['iteration']}: wall {profile['wall_s']:.4f} s, "
+        f"device busy {profile['device_busy_s']:.4f} s ({profile['device_busy_share']:.3f}); "
+        "top kernels: " + "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
+                                    for k in profile["top_kernels"]) +
+        "; the port's kernels: " + "; ".join(f"{k} x{v['calls']} {v['device_s']:.6f} s"
+                                             for k, v in profile["port_kernels"].items()))
+    return out
+
+
+def swagan_dataset(root: Path, snapshot: Path, fns: dict) -> dict:
+    """Discovery on the SWAGAN snapshot's g_ema (`create_semantic_segmentation
+    -n 32 -b 8 -c 6 9`, all 12 wavelet-space layers, launch counts from 0),
+    a label map for its k = 8 catalog, the dataset path at batch 2 against
+    the CPU (generator, then the device back half bit for bit), and the
+    dataset CLI with the shipped swagan creation config (`--device-contours`,
+    batch 16, 32 images; a warm-up, then measured with launch counts from
+    0)."""
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+    from synthesis_in_style_tpu_torch.utils.checkpoint import load_gan_snapshot
+
+    run = root / "swagan_run"
+    (run / "config").mkdir(parents=True)
+    (run / "checkpoints").mkdir()
+    (run / "config" / "config.json").write_text(json.dumps(SWAGAN_CONFIG))
+    torch.save({"g_ema": load_gan_snapshot(snapshot)["g_ema"]}, run / "checkpoints" / "g_ema.pt")
+    creation = json.loads(SWAGAN_CREATION.read_text())
+    size = SWAGAN_CONFIG["image_size"]
+    _zero(fns)
+    report = run_discovery(run, "semantic_segmentation", sizes=SWAGAN_DISCOVERY)
+    discovery_launches = _launches(fns)
+    gen = load_generator(run / "checkpoints" / "g_ema.pt", SWAGAN_CONFIG, device=DEVICE)
+    shapes = check_discovery_artifacts(run / "semantic_segmentation", gen.num_layers + 1, size,
+                                       SWAGAN_DISCOVERY)
+    write_catalog(run, gen, SWAGAN_CONFIG, creation)
+    del gen
+    (run / "creation_config.json").write_text(json.dumps(creation))
+    if DEVICE == "cuda":  # with TF32 off, as the StyleGAN2 dataset path's
+        set_tf32(False)
+        try:
+            reference_check(run, SWAGAN_CONFIG, creation)
+        finally:
+            set_tf32(True)
+            torch.backends.cuda.matmul.allow_tf32 = False
+    drive_path(run, root / "swagan_images_warmup", creation=creation)
+    _zero(fns)
+    path = drive_path(run, root / "swagan_images", creation=creation)
+    launches = _launches(fns)
+    n = check_outputs(root / "swagan_images", size)
+    samples, batch, ks = SWAGAN_DISCOVERY
+    log(f"SWAGAN discovery (-n {samples} -b {batch} -c {ks[0]} {ks[1]}, {len(shapes)} layers "
+        f"{sorted(shapes.items(), key=lambda kv: int(kv[0]))}): generation "
+        f"{report['generation_s']:.3f} s, fits {report['fit_s']:.3f} s, whole CLI "
+        f"{report['cli_s']:.3f} s; launches {discovery_launches}")
+    log(f"SWAGAN dataset path ({creation['keys_for_class_determination']} / "
+        f"{creation['keys_for_finegrained_segmentation']}): {path['written']} images in "
+        f"{path['seconds']:.3f} s = {path['written'] / path['seconds']:.2f} labelled images/s "
+        f"(batch {BATCH}, --device-contours, warm); launches {launches}; {n} PNG pairs")
+    return {"discovery": {k: v for k, v in report.items() if k != "fits"},
+            "discovery_launches": discovery_launches, "layer_shapes": shapes,
+            "written": path["written"], "seconds": path["seconds"],
+            "images_per_s": path["written"] / path["seconds"], "launches": launches,
+            "dataset": str(root / "swagan_images")}
+
+
+def write_emanet_config(root: Path, cuts: dict) -> Path:
+    """The shipped swagan_ema_net_segmenter.yaml (ResNet-50, stride 8, 256px,
+    batch 8, bfloat16) with the cuts, as JSON."""
+    import yaml
+
+    path = root / f"emanet_{cuts['max_iter']}.json"
+    path.write_text(json.dumps({**yaml.safe_load(EMANET_CONFIG.read_text()), **cuts}))
+    return path
+
+
+class _GradRecorder:
+    """Stands in for the segmenter's optimizer: keeps the gradients, moves
+    nothing."""
+
+    def __init__(self, network):
+        self.params = list(network.parameters())
+        self.names = [n for n, _ in network.named_parameters()]
+        self.grads = {}
+
+    def step(self, grads):
+        self.grads = {n: None if g is None else g.detach().double().cpu()
+                      for n, g in zip(self.names, grads)}
+
+
+def check_emanet_card_vs_cpu() -> dict:
+    """One full-width EMANet float32 training step (ResNet-50, stride 8,
+    256px, batch 2, TF32 off, dropout off: its draws differ by device) on
+    the card and on the CPU from the same weights, µ and batch, both held
+    against the same step in float64 on the card: the eval logits (before
+    the step) within 1e-4 of max|ref| on both; the gradients, the BatchNorm
+    running statistics and the new µ no further from float64 on the card
+    than twice the CPU's (plus 1e-6 of max|ref|)."""
+    from synthesis_in_style_tpu_torch.models.ema_net import EMANet
+    from synthesis_in_style_tpu_torch.updaters.segmentation_updater import emanet_train_step
+
+    g = torch.Generator().manual_seed(SEED + 23)
+    base = EMANet(num_classes=3).init_weights(g)
+    base.dropout = 0.0
+    x = torch.rand((EMANET_CHECK_BATCH, 3, 256, 256), generator=g) * 2 - 1
+    labels = torch.randint(0, 3, (EMANET_CHECK_BATCH, 256, 256), generator=g)
+    runs = {}
+    set_tf32(False)
+    try:
+        for name, device, dtype in (("card", DEVICE, torch.float32), ("cpu", "cpu", torch.float32),
+                                    ("float64", DEVICE, torch.float64)):
+            net = copy.deepcopy(base).to(device=device, dtype=dtype)
+            with torch.no_grad():
+                logits = net.eval()(x.to(device, dtype)).double().cpu()
+            rec = _GradRecorder(net)
+            emanet_train_step(net, rec, {"images": x.to(device, dtype),
+                                         "segmented": labels.to(device)}, em_mom=0.9)
+            buffers = {k: v.double().cpu() for k, v in net.state_dict().items()
+                       if k.endswith(("running_mean", "running_var")) or k == "emau.mu"}
+            runs[name] = {"logits": logits, "grads": rec.grads, "buffers": buffers}
+            del net
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = runs["float64"]
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    out = {}
+    for name in ("card", "cpu"):
+        got = runs[name]
+        if not torch.isfinite(got["logits"]).all():
+            raise AssertionError(f"EMANet {name}: non-finite logits")
+        grad_errs = {k: err(v, ref["grads"][k]) for k, v in got["grads"].items()
+                     if v is not None and ref["grads"][k].abs().max() > 0}
+        out[name] = {"logits": err(got["logits"], ref["logits"]),
+                     "grads_worst": max(grad_errs.values()),
+                     "grads_l2": float(torch.cat([(v - ref["grads"][k]).flatten()
+                                                  for k, v in got["grads"].items() if v is not None]
+                                                 ).norm() /
+                                       torch.cat([v.flatten() for v in ref["grads"].values()
+                                                  if v is not None]).norm()),
+                     "buffers_worst": max(err(v, ref["buffers"][k])
+                                          for k, v in got["buffers"].items()),
+                     "mu": err(got["buffers"]["emau.mu"], ref["buffers"]["emau.mu"])}
+        if not out[name]["logits"] <= 1e-4:
+            raise AssertionError(f"EMANet {name} eval logits vs float64: {out[name]['logits']}")
+    if runs["card"]["grads"]["emau.conv1.weight"] is not None:
+        raise AssertionError("EMANet: emau.conv1 received a gradient on the card")
+    for key in ("grads_worst", "grads_l2", "buffers_worst", "mu"):
+        if not out["card"][key] <= 2 * out["cpu"][key] + 1e-6:
+            raise AssertionError(f"EMANet step {key}: card {out['card'][key]} vs float64, CPU "
+                                 f"{out['cpu'][key]}")
+    log(f"EMANet (ResNet-50, stride 8, 256px, batch {EMANET_CHECK_BATCH}) float32 step, TF32 "
+        f"off, against float64 on the card: card {out['card']}; CPU {out['cpu']}")
+    return out
+
+
+def emanet_training(root: Path, dataset: Path, fns: dict) -> dict:
+    """The training CLI on the shipped EMANet config over the SWAGAN
+    dataset's pairs: a 2-iteration warm-up run, then 16 iterations and one
+    validation pass with launch counts from 0 (no port kernel runs: the JAX
+    package computes EMANet in plain XLA); losses finite, weights and µ
+    moved; then the step alone on a batch on the card (10 steps, then one
+    under torch.profiler)."""
+    from synthesis_in_style_tpu_torch.models.ema_net import EMANet
+
+    run_segmenter_training(dataset, write_emanet_config(root, EMANET_WARMUP),
+                           root / "emanet_warmup")
+    _zero(fns)
+    config = write_emanet_config(root, EMANET_OVERRIDES)
+    trainer, cli_seconds = run_segmenter_training(dataset, config, root / "emanet")
+    launches = _launches(fns)
+    snap = check_segmenter_run(trainer, root / "emanet", EMANET_OVERRIDES["max_iter"])
+    net = trainer.updater.network
+    if not isinstance(net, EMANet):
+        raise AssertionError(f"the EMANet config trained a {type(net).__name__}")
+    fresh = EMANet(num_classes=3).init_weights(torch.Generator().manual_seed(0))
+    if torch.equal(fresh.emau.mu, net.emau.mu.cpu()):
+        raise AssertionError("EMANet: µ did not move")
+    settings = json.loads(config.read_text())
+    iters, batch = trainer.updater.iteration, settings["batch_size"]
+    step = transunet_step_alone(trainer.updater, batch, settings["image_size"])
+    out = {"iterations": iters, "batch": batch, "loop_seconds": trainer.seconds,
+           "cli_seconds": cli_seconds, "images_per_s": iters * batch / trainer.seconds,
+           "launches": launches, "snapshot": str(snap), **step}
+    prof = step["step_profile"]
+    log(f"EMANet training (ResNet-50, stride 8, {settings['image_size']}px, batch {batch}, "
+        f"{settings.get('compute_dtype')}, {iters} iterations): {out['images_per_s']:.2f} "
+        f"training images/s (train loop {trainer.seconds:.3f} s incl. the validation pass, "
+        f"whole CLI {cli_seconds:.3f} s, warm); launches {launches}; the step alone "
+        f"{step['step_s']:.4f} s = {step['step_images_per_s']:.2f} images/s")
+    if prof:
+        log(f"profiled EMANet step: wall {prof['wall_s']:.4f} s, device busy "
+            f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+            "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
+                      for k in prof["top_kernels"]))
+    del trainer
+    return out
+
+
+def emanet_pages(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict) -> dict:
+    """The EMANet snapshot on the segmenter phase's 2048x1536 pages at 0.7 /
+    55 with the device filter: `analyze_image_segments` (warm-up, then
+    measured with launch counts from 0: CC must run), then with TF32 off
+    unfused, fused a page and fused bfloat16 (fused within 1e-5 of unfused;
+    bfloat16 class maps against float32's reported), pages/s of each (warm;
+    a fused pass that captures first), and one fused float32 page under
+    torch.profiler."""
+    import numpy as np
+    from PIL import Image
+
+    sweep = {"min_confidence": ("0.7",), "min_contour_area": ("55",)}
+    run_analyze(pages, pages_gt, snap, root / "emanet_analyze_warmup", sweep)
+    _zero(fns)
+    cli_seconds = run_analyze(pages, pages_gt, snap, root / "emanet_analyze", sweep)
+    launches = _launches(fns)
+    scores = check_results(root / "emanet_analyze", sweep)
+    images = [Image.open(p).convert("RGB") for p in sorted(pages.glob("*.png"))]
+    set_tf32(False)
+    try:
+        unfused = _serving_segmenter(snap, fused=False)
+        want = [unfused.segment_image(image) for image in images]
+        _drop(unfused)
+        fused = _serving_segmenter(snap, fused=True)
+        got = [fused.segment_image(image) for image in images]
+        _drop(fused)
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    fused_err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    if not fused_err <= 1e-5:
+        raise AssertionError(f"EMANet fused vs unfused pages: {fused_err} > 1e-5")
+    out = {"cli_seconds": cli_seconds, "cli_pages": NUM_PAGES, "launches": launches,
+           "scores": scores, "fused_vs_unfused_max_abs": fused_err}
+    classes = {}
+    for mode, fused_mode, dtype in (("unfused", False, None), ("fused", True, None),
+                                    ("fused_bfloat16", True, "bfloat16")):
+        seg = _serving_segmenter(snap, fused=fused_mode, serving_dtype=dtype)
+        _serve(seg, "fused" if fused_mode else "unfused", images)  # warms, captures
+        _sync()
+        t0 = time.perf_counter()
+        classes[mode] = _serve(seg, "fused" if fused_mode else "unfused", images)
+        _sync()
+        out[f"{mode}_pages_per_s"] = len(images) / (time.perf_counter() - t0)
+        if mode == "fused":
+            out["fused_page_profile"] = profile_call(lambda: seg.segment_image_classes(images[0]))
+        _drop(seg)
+    out["bf16_class_agreement"] = float(np.mean(
+        [np.mean(a == b) for a, b in zip(classes["fused"], classes["fused_bfloat16"])]))
+    log(f"EMANet page inference ({PAGE_W}x{PAGE_H}, 256-px patches, 0.7 / 55, device filter): "
+        f"analyze CLI {NUM_PAGES} pages in {cli_seconds:.3f} s, launches {launches}; "
+        f"fused vs unfused max abs {fused_err:.3g} (TF32 off); pages/s unfused "
+        f"{out['unfused_pages_per_s']:.3f}, fused {out['fused_pages_per_s']:.3f}, fused "
+        f"bfloat16 {out['fused_bfloat16_pages_per_s']:.3f}; bfloat16 class maps agree with "
+        f"float32's on {out['bf16_class_agreement']:.5f}")
+    prof = out["fused_page_profile"]
+    if prof:
+        log(f"profiled fused EMANet page: wall {prof['wall_s']:.4f} s, device busy "
+            f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+            "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s"
+                      for k in prof["top_kernels"]) + "; the port's kernels: " + "; ".join(
+                f"{k} x{v['calls']} {v['device_s']:.6f} s"
+                for k, v in prof["port_kernels"].items()))
+    return out
+
+
+def swagan_emanet_phase(root: Path, train_pages: Path, pages: Path, pages_gt: Path,
+                        fns: dict, detail: dict) -> dict:
+    """The shipped swagan_* configurations end to end: SWAGAN training, the
+    bias-act forward at the (shape, dtype)s it launched, discovery and the
+    dataset CLI on its snapshot, EMANet card vs CPU, EMANet training on the
+    dataset's pairs, EMANet pages."""
+    marks = [time.perf_counter()]
+    training = swagan_training(train_pages, root, fns)
+    training["fused_bias_act_shapes"] = check_fused_bias_act_path_shapes(
+        detail["fused_bias_act_path_shapes_swagan"], training.pop("bias_act_shapes"),
+        training["iterations"])
+    marks.append(time.perf_counter())
+    dataset = swagan_dataset(root, Path(training["snapshot"]), fns)
+    marks.append(time.perf_counter())
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    network = check_emanet_card_vs_cpu()
+    marks.append(time.perf_counter())
+    emanet = emanet_training(root, Path(dataset["dataset"]), fns)
+    marks.append(time.perf_counter())
+    emanet["pages"] = emanet_pages(root, Path(emanet["snapshot"]), pages, pages_gt, fns)
+    marks.append(time.perf_counter())
+    emanet["card_vs_cpu"] = network
+    seconds = dict(zip(("swagan_training", "swagan_dataset", "emanet_card_vs_cpu",
+                        "emanet_training", "emanet_pages"),
+                       (b - a for a, b in zip(marks, marks[1:]))))
+    log("swagan_* phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"training": training, "dataset": dataset, "emanet": emanet, "seconds": seconds}
+
+
 def flash_only(smi: str, detail_path) -> int:
     """`--only flash`: what ptxas reported for the flash kernels, then
     check_flash_attention."""
@@ -3770,6 +4214,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    phases = [("build", time.perf_counter())]  # (phase, when it ended)
 
     set_tf32(False)  # parity phases compare in full float32
     if cli.only == "flash":
@@ -3777,7 +4222,8 @@ def main() -> int:
     detail = {name: [] for name in ("fused_bias_act", "fused_bias_act_edges",
                                     "fused_bias_act_path_shapes", "fused_bias_act_bwd",
                                     "fused_blur", "segmented_cc", "autograd",
-                                    "training_iteration", "flash_attention")}
+                                    "training_iteration", "flash_attention",
+                                    "fused_bias_act_path_shapes_swagan")}
     kernels = {"fused_bias_act": check_fused_bias_act(detail["fused_bias_act"]),
                "fused_bias_act_bwd": check_fused_bias_act_bwd(detail["fused_bias_act_bwd"]),
                "fused_blur": check_fused_blur(detail["fused_blur"])}
@@ -3786,7 +4232,10 @@ def main() -> int:
                                                    edge_err)
     kernels.update(check_flash_attention(detail["flash_attention"]))
     check_autograd_functions(detail["autograd"])
+    phases.append(("kernel checks", time.perf_counter()))
     check_training_iteration(detail["training_iteration"])
+    check_training_iteration(detail["training_iteration"], SWAGAN_CONFIG)
+    phases.append(("training iterations card vs CPU", time.perf_counter()))
     fns = counters()
 
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -3797,6 +4246,7 @@ def main() -> int:
         set_tf32(True)
         torch.backends.cuda.matmul.allow_tf32 = False
         discovery = discovery_phase(run, fns)
+        phases.append(("discovery", time.perf_counter()))
         set_tf32(False)
         from synthesis_in_style_tpu_torch.models.factory import load_generator
 
@@ -3828,6 +4278,7 @@ def main() -> int:
             f"{path_1thread['written'] / path_1thread['seconds']:.2f} with the one-thread "
             "writer (build_dataset wall time, warm)")
         host_route = host_route_phase(run, root, fns)
+        phases.append(("dataset paths", time.perf_counter()))
 
         pages = write_training_pages(root)
         run_training_cli(pages, root / "train_warmup")
@@ -3842,20 +4293,30 @@ def main() -> int:
         step_seconds = {}
         run_training_cli(pages, root / "train_timed", step_seconds)
         iteration_profile = profile_iteration(trainer)
+        phases.append(("training", time.perf_counter()))
 
         # the segmenter path on the dataset path's PNG pairs
         segmenter = segmenter_phase(root, root / "generated_images", fns,
                                     detail["segmented_cc"])
+        phases.append(("segmenter", time.perf_counter()))
         # whole-page serving on that phase's snapshot and pages
         serving = serving_phase(root, Path(segmenter["snapshot"]), Path(segmenter["pages"]),
                                 Path(segmenter["pages_gt"]), fns)
+        phases.append(("serving", time.perf_counter()))
         # TransUNet on the same PNG pairs and pages: the network card vs CPU,
         # training with attention_impl flash and xla, flash page inference
         transunet = transunet_phase(root, root / "generated_images", Path(segmenter["pages"]),
                                     Path(segmenter["pages_gt"]), fns)
+        phases.append(("transunet", time.perf_counter()))
+        # the shipped swagan_* path: SWAGAN training, discovery and the
+        # dataset CLI on its snapshot, EMANet training and pages
+        swagan_emanet = swagan_emanet_phase(root, pages, Path(segmenter["pages"]),
+                                            Path(segmenter["pages_gt"]), fns, detail)
+        phases.append(("swagan_emanet", time.perf_counter()))
         # the capstone recipe's legs: fixture, 128px GAN (resumed), 256px
         # GAN (warm-started), the five-leg chain
         capstone = capstone_phase(root, fns)
+        phases.append(("capstone", time.perf_counter()))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     path_shapes = check_fused_bias_act_path_shapes(detail["fused_bias_act_path_shapes"],
@@ -3883,7 +4344,15 @@ def main() -> int:
              transunet["training_flash"]["float32_step"]["launches"],
              ("flash_attention_fwd", "flash_attention_bwd")),
             ("transunet_page_inference", transunet["page"]["launches"],
-             ("flash_attention_fwd", "segmented_cc"))):
+             ("flash_attention_fwd", "segmented_cc")),
+            ("swagan_training", swagan_emanet["training"]["launches"],
+             ("fused_bias_act", "fused_bias_act_bwd", "fused_blur")),
+            ("swagan_discovery", swagan_emanet["dataset"]["discovery_launches"],
+             ("fused_bias_act", "fused_blur")),
+            ("swagan_dataset", swagan_emanet["dataset"]["launches"],
+             ("fused_bias_act", "fused_blur", "segmented_cc")),
+            ("emanet_page_inference", swagan_emanet["emanet"]["pages"]["launches"],
+             ("segmented_cc",))):
         for name in needed:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path_name} path")
@@ -3949,7 +4418,12 @@ def main() -> int:
                        transunet["training_flash"]["float32_step"]["launches"][name],
                    "transunet_float32_step_xla":
                        transunet["training_xla"]["float32_step"]["launches"][name],
-                   "transunet_page_inference": transunet["page"]["launches"][name]}
+                   "transunet_page_inference": transunet["page"]["launches"][name],
+                   "swagan_training": swagan_emanet["training"]["launches"][name],
+                   "swagan_discovery": swagan_emanet["dataset"]["discovery_launches"][name],
+                   "swagan_dataset": swagan_emanet["dataset"]["launches"][name],
+                   "emanet_training": swagan_emanet["emanet"]["launches"][name],
+                   "emanet_page_inference": swagan_emanet["emanet"]["pages"]["launches"][name]}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
                      "replaces": tpu,
@@ -3970,15 +4444,18 @@ def main() -> int:
                 f"({k['ms'] / k['bound_ms']:.2f}x); bfloat16 {k['bf16_ms']:.4f} ms (device "
                 f"{k['bf16_device_ms']}) against {k['bf16_bound_ms']:.4f} "
                 f"({k['bf16_ms'] / k['bf16_bound_ms']:.2f}x)")
+    phase_seconds = {name: end - start for (_, start), (name, end) in zip(phases, phases[1:])}
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items()) +
+        f"; whole script after the build {phases[-1][1] - phases[0][1]:.1f}")
     if cli.detail is not None:
         cli.detail.parent.mkdir(parents=True, exist_ok=True)
         cli.detail.write_text(json.dumps(
-            {"card": smi, "kernels": rows, "detail": detail,
+            {"card": smi, "kernels": rows, "detail": detail, "phase_seconds": phase_seconds,
              "path": {**path, "launches": dataset_launches, "stages": stages,
                       "one_thread_png": path_1thread},
              "host_route": host_route, "discovery": discovery,
              "training": training, "segmenter": segmenter, "serving": serving,
-             "capstone": capstone, "transunet": transunet},
+             "capstone": capstone, "transunet": transunet, "swagan_emanet": swagan_emanet},
             indent=1, default=str))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

@@ -15,12 +15,12 @@ this run's timestamped attempts (a fresh start when there is none).
 `--profile-dir` writes a torch.profiler Chrome trace of the run.
 Augmentation runs in the loader workers without OpenCV.
 
-`network: DocUFCN` and `network: TransUNet` train (TransUNet with
-`attention_impl: flash` runs the port's CUDA flash attention on the card).
+`network: DocUFCN`, `network: TransUNet` (with `attention_impl: flash` it
+runs the port's CUDA flash attention on the card) and `network: EMANet`
+train.
 
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): wandb
-logging, EMANet and PixelEnsemble, `dataset: dataset_gan`, and more than one
-process.
+logging, PixelEnsemble, `dataset: dataset_gan`, and more than one process.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.train <config.yaml> \\
@@ -77,7 +77,7 @@ def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
     if config.get("wandb_project_name"):
         raise _not_ported("wandb logging")
-    if config.get("network", "DocUFCN") not in ("DocUFCN", "TransUNet"):
+    if config.get("network", "DocUFCN") not in ("DocUFCN", "TransUNet", "EMANet"):
         raise _not_ported(f"network {config['network']}")
     if config.get("dataset", "wpi") != "wpi":
         raise _not_ported(f"dataset {config['dataset']}")

@@ -1,4 +1,4 @@
-"""Train StyleGAN2 on unlabelled document scans (counterpart of
+"""Train StyleGAN2 or SWAGAN on unlabelled document scans (counterpart of
 synthesis_in_style_tpu/cli/train_stylegan_2.py).
 
 The same flags and config keys as the JAX CLI, plus `-d/--device` (default
@@ -24,8 +24,11 @@ dataset CLI), `log.jsonl`, sample grids and the divergence alarm.
 * `-c/--cache-root`: images copied to a local cache on first read.
 * `--profile-dir`: a torch.profiler Chrome trace of the run.
 
+`stylegan_variant: swagan` (or `-s swagan`) trains SWAGAN
+(models/swagan.py); `-s 1` warns and trains StyleGAN2, as the JAX CLI does.
+
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): wandb
-logging, the swagan and StyleGAN1 variants, and more than one process.
+logging and more than one process.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.train_stylegan_2 <config.yaml> \\
@@ -37,6 +40,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import os
+import warnings
 from pathlib import Path
 from typing import Callable, Dict, Tuple, Union
 
@@ -180,6 +184,12 @@ def frozen_noise_layers(config: dict, num_layers: int) -> Tuple[int, ...]:
 def main(args: argparse.Namespace) -> Trainer:
     """Train as configured; returns the finished Trainer."""
     config = merge_config_and_args(load_config_file(args.config), args)
+    if str(config.get("stylegan_variant", 2)) == "1":
+        # the JAX CLI (and the reference trainer it follows) dispatches only
+        # swagan vs stylegan2: -s 1 trains StyleGAN2
+        warnings.warn("stylegan_variant '1' falls back to StyleGAN2 (the reference "
+                      "trainer only dispatches swagan vs stylegan2)")
+        config["stylegan_variant"] = 2
     check_supported(config)
     device = torch.device(config["device"])
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -302,7 +312,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "and read them from there")
     parser.add_argument("-s", "--stylegan-variant", type=str.lower,
                         choices=["1", "2", "swagan"], default=None,
-                        help="which stylegan variant to use (only 2 is ported)")
+                        help="which stylegan variant to use (1 trains StyleGAN2, with a "
+                        "warning)")
     parser.add_argument("-l", "--log-dir", default="training")
     parser.add_argument("-ln", "--log-name", default="stylegan2")
     parser.add_argument("--wandb-project-name", default=None,

@@ -246,7 +246,7 @@ class Generator(nn.Module):
         super().__init__()
         self.size = size
         self.style_dim = style_dim
-        self.log_size = int(math.log2(size))
+        self.log_size = self._log_size(size)
         self.num_layers = (self.log_size - 2) * 2 + 1
         self.n_latent = self.log_size * 2 - 2
         channels = generator_channels(channel_multiplier)
@@ -260,7 +260,7 @@ class Generator(nn.Module):
         self.input = nn.Module()
         self.input.input = nn.Parameter(torch.empty(1, channels[4], 4, 4))
         self.conv1 = StyledConv(channels[4], channels[4], 3, style_dim, blur_kernel=blur_kernel)
-        self.to_rgb1 = ToRGB(channels[4], style_dim)
+        self.to_rgb1 = self._to_rgb(channels[4], style_dim)
 
         self.convs = nn.ModuleList()
         self.to_rgbs = nn.ModuleList()
@@ -271,7 +271,7 @@ class Generator(nn.Module):
                                          upsample=True, blur_kernel=blur_kernel))
             self.convs.append(StyledConv(out_channel, out_channel, 3, style_dim,
                                          blur_kernel=blur_kernel))
-            self.to_rgbs.append(ToRGB(out_channel, style_dim))
+            self.to_rgbs.append(self._to_rgb(out_channel, style_dim))
             in_channel = out_channel
 
         shapes = []
@@ -279,6 +279,20 @@ class Generator(nn.Module):
             res = 2 ** ((layer_idx + 5) // 2)
             shapes.append((res, res))
         self.noises = NoiseBuffers(shapes)
+
+    @staticmethod
+    def _log_size(size: int) -> int:
+        """log2 of the resolution the synthesis pyramid ends at."""
+        return int(math.log2(size))
+
+    @staticmethod
+    def _to_rgb(in_channel: int, style_dim: int) -> nn.Module:
+        return ToRGB(in_channel, style_dim)
+
+    @staticmethod
+    def _image(skip: torch.Tensor) -> torch.Tensor:
+        """The image from the last ToRGB's accumulated skip."""
+        return skip
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Generator":
@@ -383,9 +397,10 @@ class Generator(nn.Module):
             skip = to_rgb(out, latent[:, i + 2], skip)
             i += 2
 
+        image = self._image(skip)
         if return_latents:
-            return skip, latent
-        return skip, acts
+            return image, latent
+        return image, acts
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from torch import nn
 from synthesis_in_style_tpu_torch.models.base_segmenter import SegmenterConfig
 from synthesis_in_style_tpu_torch.models.doc_ufcn import BatchNorm2d, _truncated_normal
 from synthesis_in_style_tpu_torch.ops.attention import flash_attention
+from synthesis_in_style_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 # ---------------------------------------------------------------------------
 # configs (the JAX package's VIT_CONFIGS)
@@ -150,16 +151,6 @@ VIT_CONFIGS = {
     "R50-ViT-L_16": get_r50_l16_config,
     "testing": get_testing_config,
 }
-
-
-def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize with align_corners=True of an NHWC tensor (the JAX
-    package's function, in its layout)."""
-    if tuple(x.shape[1:3]) == (out_h, out_w):
-        return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
-                      align_corners=True)
-    return y.permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +418,7 @@ class DecoderBlock(nn.Module):
         self.conv2 = Conv2dReLU(features, features)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = F.interpolate(x, size=(x.shape[2] * 2, x.shape[3] * 2), mode="bilinear",
-                          align_corners=True)
+        x = resize_bilinear_align_corners(x, x.shape[2] * 2, x.shape[3] * 2)
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
         return self.conv2(self.conv1(x))

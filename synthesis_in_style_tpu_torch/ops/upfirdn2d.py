@@ -112,6 +112,13 @@ def upsample_2d(x: torch.Tensor, kernel: torch.Tensor, factor: int = 2) -> torch
     return upfirdn2d(x, kernel * (factor**2), up=factor, down=1, pad=(pad0, pad1))
 
 
+def downsample_2d(x: torch.Tensor, kernel: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """FIR downsample; `kernel` is normalized (make_kernel)."""
+    kh = kernel.shape[0]
+    p = kh - factor
+    return upfirdn2d(x, kernel, up=1, down=factor, pad=((p + 1) // 2, p // 2))
+
+
 def blur_2d(
     x: torch.Tensor,
     kernel: torch.Tensor,

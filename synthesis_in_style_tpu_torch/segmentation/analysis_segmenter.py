@@ -31,8 +31,10 @@ sizes, N to a graph (`pages_per_batch`), with two chunks in flight.
 `serving_dtype="bfloat16"` casts the network's parameters and BatchNorm
 statistics once and runs the forward in bfloat16, the softmax in float32.
 
-A TransUNet snapshot serves the same ways (its attention through the flash
-kernel when its config says `attention_impl: flash`).
+TransUNet and EMANet snapshots serve the same ways (TransUNet's attention
+through the flash kernel when its config says `attention_impl: flash`;
+EMANet's pages use the snapshot's µ bases, `emau.mu`, where the JAX
+package's page path falls back to the initial µ).
 
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): the mesh
 and `quantized`.

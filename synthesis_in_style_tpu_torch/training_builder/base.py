@@ -3,10 +3,11 @@ network, optimizer, updater, snapshotter, evaluator and image plotter of one
 segmentation architecture.
 
 A snapshot is `<log_dir>/checkpoints/iter_<N>.pt` holding
-`segmentation_network` (the network's state dict, reference layout) and
-`main_optimizer` (the torch optimizer's state: DocUFCN's Adam, TransUNet's
-SGD). `--fine-tune` loads the network
-only; `--resume-ckpt` loads both and the iteration.
+`segmentation_network` (the network's state dict, reference layout; EMANet's
+µ bases are its `emau.mu` buffer) and `main_optimizer` (the torch
+optimizer's state: DocUFCN's Adam, TransUNet's and EMANet's SGD).
+`--fine-tune` loads the network only; `--resume-ckpt` loads both and the
+iteration.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Segmentation training steps (counterpart of
 synthesis_in_style_tpu/updaters/segmentation_updater.py): DocUFCN's weighted
-cross-entropy step (`standard_train_step`) and TransUNet's 0.5 * CE + 0.5 *
-Dice step (`transunet_train_step`, reporting `combined`, `CE` and `Dice`).
+cross-entropy step (`standard_train_step`), TransUNet's 0.5 * CE + 0.5 *
+Dice step (`transunet_train_step`, reporting `combined`, `CE` and `Dice`)
+and EMANet's cross-entropy step with the moving average of its µ bases
+(`emanet_train_step`, reporting `softmax`).
 
 * `compute_dtype` ("bfloat16") runs the forward and backward with every
   floating parameter cast to that type, differentiably, so the gradients
@@ -9,13 +11,13 @@ Dice step (`transunet_train_step`, reporting `combined`, `CE` and `Dice`).
   whole parameter tree. BatchNorm's scale and bias are rounded to that type
   and handed over as float32 (see `cast_params`); its statistics and running
   buffers stay float32, and the logits return to float32 before the loss.
-* The optimizer is anything with `step(grads)`: DocUFCN's `GANOptimizer`
-  with weight decay (clip the global norm to 1, add weight_decay * param,
-  Adam with the schedule at the update count), TransUNet's `SGDOptimizer`.
+* The optimizer is anything with `params` and `step(grads)`, the gradients
+  in the order of its `params`: DocUFCN's `GANOptimizer` with weight decay
+  (clip the global norm to 1, add weight_decay * param, Adam with the
+  schedule at the update count), TransUNet's `SGDOptimizer` and EMANet's,
+  over three parameter groups.
 * Dropout draws from torch's default generator, seeded from (seed,
   iteration) at each step, so a resumed run draws what a straight run did.
-
-The EMANet step is not ported.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ def forward_train(network: nn.Module, images: torch.Tensor,
     return logits.float()
 
 
-def _apply_gradients(network: nn.Module, optimizer, loss: torch.Tensor) -> None:
-    grads = torch.autograd.grad(loss, list(network.parameters()), allow_unused=True)
+def _apply_gradients(optimizer, loss: torch.Tensor) -> None:
+    grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
     optimizer.step(grads)
 
 
@@ -74,7 +76,7 @@ def standard_train_step(network: nn.Module, optimizer, batch: Dict[str, torch.Te
     network.train()
     logits = forward_train(network, batch["images"], compute_dtype)
     loss = cross_entropy_loss(logits, batch["segmented"], class_weights)
-    _apply_gradients(network, optimizer, loss)
+    _apply_gradients(optimizer, loss)
     return {"softmax": loss.detach()}
 
 
@@ -89,8 +91,30 @@ def transunet_train_step(network: nn.Module, optimizer, batch: Dict[str, torch.T
     loss_ce = cross_entropy_loss(logits, labels)
     loss_dice = dice_loss(logits, labels, num_classes)
     loss = 0.5 * loss_ce + 0.5 * loss_dice
-    _apply_gradients(network, optimizer, loss)
+    _apply_gradients(optimizer, loss)
     return {"combined": loss.detach(), "CE": loss_ce.detach(), "Dice": loss_dice.detach()}
+
+
+def emanet_train_step(network: nn.Module, optimizer, batch: Dict[str, torch.Tensor],
+                      em_mom: float = 0.9, compute_dtype: Optional[torch.dtype] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """One EMANet step (the JAX package's `make_emanet_train_step`):
+    cross-entropy only, then the bases buffer moves to em_mom * µ + (1 -
+    em_mom) * (the batch mean of the forward's µ), in float32. Returns
+    {"softmax": loss}."""
+    network.train()
+    images = batch["images"]
+    if compute_dtype is None:
+        logits, mu_batch = network(images)
+    else:
+        logits, mu_batch = torch.func.functional_call(
+            network, cast_params(network, compute_dtype), (images.to(compute_dtype),))
+    loss = cross_entropy_loss(logits.float(), batch["segmented"])
+    _apply_gradients(optimizer, loss)
+    with torch.no_grad():
+        mu = network.emau.mu
+        mu.copy_(mu * em_mom + mu_batch.float().mean(dim=0, keepdim=True) * (1 - em_mom))
+    return {"softmax": loss.detach()}
 
 
 class SGDOptimizer:
@@ -99,14 +123,23 @@ class SGDOptimizer:
     added to the gradient before the momentum trace (dampening 0, no
     Nesterov), and each update steps at the schedule's rate for the count of
     updates made before it. The count travels in the state dict's parameter
-    groups (`update_count`)."""
+    groups (`update_count`).
+
+    `params` may instead be parameter groups, dicts of `params` with their
+    own `weight_decay` and `lr_scale` (the schedule's rate times it): EMANet's
+    optax.multi_transform of three such chains. A parameter without a
+    gradient gets a zero one, so its decay and momentum still apply, as
+    optax applies them to a zero gradient (torch.optim.SGD would skip it)."""
 
     def __init__(self, params, schedule: Callable[[int], float], momentum: float = 0.9,
                  weight_decay: float = 0.0):
-        self.params = list(params)
+        params = list(params)
+        groups = params if params and isinstance(params[0], dict) else [{"params": params}]
+        groups = [{"weight_decay": weight_decay, "lr_scale": 1.0, **group,
+                   "params": list(group["params"])} for group in groups]
+        self.params = [p for group in groups for p in group["params"]]
         self.schedule = schedule
-        self.sgd = torch.optim.SGD(self.params, lr=schedule(0), momentum=momentum,
-                                   weight_decay=weight_decay)
+        self.sgd = torch.optim.SGD(groups, lr=schedule(0), momentum=momentum)
         for group in self.sgd.param_groups:
             group["update_count"] = 0
 
@@ -121,7 +154,7 @@ class SGDOptimizer:
         for p, g in zip(self.params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
         for group in self.sgd.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_scale", 1.0)  # older snapshots have none
             group["update_count"] += 1
         self.sgd.step()
         for p in self.params:
@@ -137,12 +170,13 @@ class SGDOptimizer:
 class SegmentationUpdater(Updater):
     """Fetches a batch of NHWC images and labels, moves it to the device
     (as an NCHW view, channels last in memory), and takes one step: the
-    weighted cross-entropy step, or with `num_classes` the TransUNet step;
-    reports its losses under `loss/`."""
+    weighted cross-entropy step, with `num_classes` the TransUNet step, or
+    with `em_mom` the EMANet step; reports its losses under `loss/`."""
 
     def __init__(self, network: nn.Module, optimizer, iterators,
                  class_weights=None, compute_dtype: Optional[str] = None, seed: int = 0,
-                 device="cuda", num_classes: Optional[int] = None):
+                 device="cuda", num_classes: Optional[int] = None,
+                 em_mom: Optional[float] = None):
         super().__init__(iterators, seed=seed, device=device)
         self.network = network
         self.optimizer = optimizer
@@ -151,9 +185,13 @@ class SegmentationUpdater(Updater):
                                               device=self.device))
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.num_classes = num_classes
+        self.em_mom = em_mom
 
     def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One step on a batch already on the device; returns its losses."""
+        if self.em_mom is not None:
+            return emanet_train_step(self.network, self.optimizer, batch, self.em_mom,
+                                     self.compute_dtype)
         if self.num_classes is not None:
             return transunet_train_step(self.network, self.optimizer, batch, self.num_classes,
                                         self.compute_dtype)

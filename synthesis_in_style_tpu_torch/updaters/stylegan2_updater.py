@@ -9,6 +9,9 @@ iterations, EMA last.
   `draw_path` take the updater's torch.Generator, and each step function
   takes what they drew (z1, z2, the mixing index, the per-layer noise, the
   path-length image noise). Tests feed the JAX step's draws to the port's.
+  n_latent, the layers and their noise shapes come from the generator (its
+  `n_latent` and noise buffers), so StyleGAN2 (14 latents at 256px) and
+  SWAGAN (12) train through the same steps.
 * `compute_dtype` ("bfloat16") casts every floating parameter and buffer
   for the D and G steps, like the JAX package's `cast_floating`; the cast
   is differentiable, so gradients reach the float32 masters. R1 and path

@@ -22,9 +22,12 @@ reference layout: `generator`, `discriminator` and `g_ema` state dicts,
 `generator_optimizer` and `discriminator_optimizer` torch optimizer states,
 and `training_state` with `mean_path_length`.
 
-`doc_ufcn_params_from_jax` and `transunet_params_from_jax` carry the JAX
-package's segmenters across in the reference torch layout (so do bare
-DocUFCN and TransUNet `.pt` state dicts, through `load_segmenter_snapshot`).
+`doc_ufcn_params_from_jax`, `transunet_params_from_jax` and
+`ema_net_params_from_jax` carry the JAX package's segmenters across in the
+reference torch layout (so do bare DocUFCN, TransUNet and EMANet `.pt` state
+dicts, through `load_segmenter_snapshot`). `swagan_generator_params_from_jax`
+and `swagan_discriminator_params_from_jax` do the same for SWAGAN, whose
+snapshots are GAN snapshots like StyleGAN2's.
 `discover_latest_snapshot` finds the newest `iter_<N>.pt` across a run's
 timestamped attempts (`--resume-ckpt latest`); `upscale_gan_snapshot_tree`
 and `merge_matching_leaves` warm-start a larger GAN from a smaller one's
@@ -102,6 +105,19 @@ def discriminator_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Ten
         _conv_layer(f"{t}.conv1", block["conv1"], 0, sd)
         _conv_layer(f"{t}.conv2", block["conv2"], 1, sd)  # index 0 is the blur
         _conv_layer(f"{t}.skip", block["skip"], 1, sd)
+    _final_layers(params, sd)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def swagan_generator_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's SWAGAN generator variables -> port state dict. SWAGAN
+    shares StyleGAN2's keys (its ToRGB has 12 output channels), so this is
+    `generator_params_from_jax`, the inverse of `torch_generator_to_flax`."""
+    return generator_params_from_jax(variables)
+
+
+def _final_layers(params: Dict[str, Any], sd: Dict[str, np.ndarray]) -> None:
+    """A discriminator's final conv and two linears, JAX -> reference keys."""
     _conv_layer("final_conv", params["final_conv"], 0, sd)
     # JAX flattens the (4, 4, C) map NHWC; the reference (and the port) NCHW
     w0 = np.asarray(params["final_linear_0"]["weight"]).T  # (out, 16 C), (y, x, c) columns
@@ -110,6 +126,23 @@ def discriminator_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Ten
     sd["final_linear.0.weight"] = w0
     sd["final_linear.0.bias"] = np.asarray(params["final_linear_0"]["bias"])
     _lin("final_linear.1", params["final_linear_1"], sd)
+
+
+def swagan_discriminator_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax SWAGAN discriminator params (numpy leaves; the bare tree or
+    {"params": tree}) -> port state dict (the inverse of
+    `torch_swagan_discriminator_to_flax` in the JAX package):
+    `from_rgbs.{i}.conv.*`, `convs.{i}.conv1/conv2.*`, `final_conv.*`,
+    `final_linear.{0,1}.*`."""
+    params = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(sum(1 for name in params if name.startswith("from_rgbs_"))):
+        _conv_layer(f"from_rgbs.{i}.conv", params[f"from_rgbs_{i}"]["conv"], 0, sd)
+    for i in range(sum(1 for name in params if name.startswith("convs_"))):
+        block = params[f"convs_{i}"]
+        _conv_layer(f"convs.{i}.conv1", block["conv1"], 0, sd)
+        _conv_layer(f"convs.{i}.conv2", block["conv2"], 1, sd)  # index 0 is the blur
+    _final_layers(params, sd)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
@@ -142,10 +175,15 @@ def load_jax_npz(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
     return generator_params_from_jax(variables)
 
 
+_FIXED_BUFFERS = ("kernel", "ll", "lh", "hl", "hh")
+
+
 def strip_blur_kernels(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Drop the reference's fixed FIR buffers (`*.kernel` of its Blur and
-    Upsample modules): the port rebuilds them and does not store them."""
-    return {k: torch.as_tensor(v) for k, v in state.items() if not k.endswith(".kernel")}
+    """Drop the reference's fixed filter buffers (`*.kernel` of its Blur,
+    Upsample and Downsample modules, and the `ll` / `lh` / `hl` / `hh` Haar
+    kernels of SWAGAN's wavelet transforms): the port does not store them."""
+    return {k: torch.as_tensor(v) for k, v in state.items()
+            if k.rsplit(".", 1)[-1] not in _FIXED_BUFFERS}
 
 
 def load_reference_pt(path: Union[str, Path], key: str = "g_ema") -> Dict[str, torch.Tensor]:
@@ -348,6 +386,62 @@ def transunet_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tens
             else torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+def ema_net_params_from_jax(variables: Dict[str, Any], mu) -> Dict[str, torch.Tensor]:
+    """The JAX package's EMANet variables ({"params", "batch_stats"}, numpy
+    leaves) and its µ bases (1, C, K) -> the port's EMANet state dict, in the
+    reference's key layout (the inverse of `torch_emanet_to_flax` in the JAX
+    package; µ becomes the `emau.mu` buffer)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+
+    def node(tree: Dict[str, Any], path: str) -> Dict[str, Any]:
+        for part in path.split("/"):
+            tree = tree[part]
+        return tree
+
+    def conv(t: str, path: str) -> None:
+        p = node(params, path)
+        sd[f"{t}.weight"] = _hwio_to_oihw(p["kernel"])
+        if "bias" in p:
+            sd[f"{t}.bias"] = np.asarray(p["bias"])
+
+    def bn(t: str, path: str) -> None:
+        p, s = node(params, path), node(stats, path)
+        sd[f"{t}.weight"], sd[f"{t}.bias"] = np.asarray(p["scale"]), np.asarray(p["bias"])
+        sd[f"{t}.running_mean"] = np.asarray(s["mean"])
+        sd[f"{t}.running_var"] = np.asarray(s["var"])
+        sd[f"{t}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    for t, path in (("extractor.0.0", "stem_conv1"), ("extractor.0.3", "stem_conv2"),
+                    ("extractor.0.6", "stem_conv3")):
+        conv(t, f"extractor/{path}")
+    for t, path in (("extractor.0.1", "stem_bn1"), ("extractor.0.4", "stem_bn2"),
+                    ("extractor.1", "bn1")):
+        bn(t, f"extractor/{path}")
+    for li in range(1, 5):
+        layer = params["extractor"][f"layer{li}"]
+        for i in range(len(layer)):
+            t, f = f"extractor.{li + 3}.{i}", f"extractor/layer{li}/block_{i}"
+            for j in (1, 2, 3):
+                conv(f"{t}.conv{j}", f"{f}/conv{j}")
+                bn(f"{t}.bn{j}", f"{f}/bn{j}")
+            if "downsample_conv" in layer[f"block_{i}"]:
+                conv(f"{t}.downsample.0", f"{f}/downsample_conv")
+                bn(f"{t}.downsample.1", f"{f}/downsample_bn")
+    conv("fc0.conv", "fc0_conv")
+    bn("fc0.bn", "fc0_bn")
+    conv("emau.conv1", "emau/conv1")
+    conv("emau.conv2.0", "emau/conv2_conv")
+    bn("emau.conv2.1", "emau/conv2_bn")
+    conv("fc1.0.conv", "fc1_conv")
+    bn("fc1.0.bn", "fc1_bn")
+    conv("fc2", "fc2")
+    sd["emau.mu"] = np.asarray(mu)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) if v.dtype == np.int64
+            else torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
 SEGMENTATION_NETWORK_KEY = "segmentation_network"
 
 
@@ -372,7 +466,8 @@ def save_segmenter_snapshot(path: Union[str, Path], network: torch.nn.Module,
 def load_segmenter_snapshot(path: Union[str, Path]) -> Dict[str, Any]:
     """{"segmentation_network": state dict[, "main_optimizer": ...,
     "iteration": ...]} from a snapshot of the port, or from a reference
-    `.pt` (the same key, or a bare DocUFCN or TransUNet state dict)."""
+    `.pt` (the same key, or a bare DocUFCN, TransUNet or EMANet state
+    dict)."""
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
@@ -382,7 +477,9 @@ def load_segmenter_snapshot(path: Union[str, Path]) -> Dict[str, Any]:
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
     if SEGMENTATION_NETWORK_KEY in ckpt:
         return ckpt
-    if "classifier.weight" in ckpt or "segmentation_head.0.weight" in ckpt:  # DocUFCN, TransUNet
+    # DocUFCN, TransUNet, EMANet
+    if any(key in ckpt for key in ("classifier.weight", "segmentation_head.0.weight",
+                                   "emau.mu")):
         return {SEGMENTATION_NETWORK_KEY: ckpt}
     raise KeyError(f"{path}: no {SEGMENTATION_NETWORK_KEY!r} state dict; found {sorted(ckpt)}")
 

@@ -83,10 +83,14 @@ def test_discriminator_state_dict_is_reference_layout():
 
 
 def test_factory_builds_discriminator():
+    from synthesis_in_style_tpu_torch.models import swagan
+
     disc = get_discriminator({"image_size": 16, "channel_multiplier": 2, "input_dim": 3})
     assert isinstance(disc, Discriminator)
+    assert isinstance(get_discriminator({"image_size": 16, "stylegan_variant": "swagan"}),
+                      swagan.Discriminator)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_discriminator({"image_size": 16, "stylegan_variant": "swagan"})
+        get_discriminator({"image_size": 16, "stylegan_variant": 1})
 
 
 @functools.lru_cache(maxsize=None)

@@ -190,12 +190,28 @@ def test_cli_trains_snapshots_and_feeds_the_dataset_path(tmp_path):
     assert state.g_optimizer.count == snap["generator_optimizer"]["state"][0]["step"] + 3
 
 
-@pytest.mark.parametrize("extra", [["--wandb-project-name", "p"], ["-s", "swagan"],
+@pytest.mark.parametrize("extra", [["--wandb-project-name", "p"], ["--mpi-backend", "gloo"],
                                    ["--local_rank", "1"]])
 def test_cli_raises_on_what_is_not_ported(tmp_path, extra):
     data = _write_run_inputs(tmp_path, n_images=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run_cli(data, tmp_path / "logs", *extra)
+
+
+def test_cli_trains_the_swagan_variant(tmp_path):
+    """`-s swagan` trains SWAGAN (tests/test_torch_swagan.py holds its steps
+    against the JAX package and drives its snapshot through the dataset
+    CLIs)."""
+    from synthesis_in_style_tpu_torch.models import swagan
+
+    data = _write_run_inputs(tmp_path, n_images=2)
+    config = json.loads((data / "config.json").read_text())
+    # float32: bfloat16 convolutions are slow on the CPU
+    (data / "config.json").write_text(json.dumps({**config, "compute_dtype": None}))
+    trainer = _run_cli(data, tmp_path / "logs", "-s", "swagan")
+    assert isinstance(trainer.updater.state.generator, swagan.Generator)
+    assert isinstance(trainer.updater.state.discriminator, swagan.Discriminator)
+    assert trainer.updater.iteration == 2
 
 
 def test_load_gan_snapshot_reads_a_reference_checkpoint(tmp_path):

@@ -73,10 +73,23 @@ CAPSTONE_MODULES = (
     "synthesis_in_style_tpu_torch.scripts.run_capstone_chain",
 )
 
+# the SWAGAN and EMANet modules
+SWAGAN_EMANET_MODULES = (
+    "synthesis_in_style_tpu_torch.models.swagan",
+    "synthesis_in_style_tpu_torch.models.ema_net",
+    "synthesis_in_style_tpu_torch.models.factory",
+    "synthesis_in_style_tpu_torch.ops.resize",
+    "synthesis_in_style_tpu_torch.ops.upfirdn2d",
+    "synthesis_in_style_tpu_torch.training_builder.ema_net_builder",
+    "synthesis_in_style_tpu_torch.updaters.segmentation_updater",
+    "synthesis_in_style_tpu_torch.updaters.stylegan2_updater",
+)
+
 _IMPORT_LINE = re.compile(r"^\s*(?:import|from)\s+(cv2|jax|synthesis_in_style_tpu)(?:\s|\.|$)")
 
 
-@pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES + CAPSTONE_MODULES)
+@pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES + CAPSTONE_MODULES
+                         + SWAGAN_EMANET_MODULES)
 def test_host_route_modules_import_no_cv2_and_no_jax(module):
     """No import line of the module names cv2, jax or the JAX package, and it
     imports where both are blocked."""

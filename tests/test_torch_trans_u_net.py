@@ -54,6 +54,7 @@ from synthesis_in_style_tpu.updaters.segmentation_updater import (
 from synthesis_in_style_tpu.utils.checkpoint import torch_transunet_to_flax
 from synthesis_in_style_tpu_torch.core import schedules
 from synthesis_in_style_tpu_torch.models import trans_u_net as tu
+from synthesis_in_style_tpu_torch.ops.resize import resize_bilinear_align_corners
 from synthesis_in_style_tpu_torch.updaters.segmentation_updater import (
     SGDOptimizer,
     transunet_train_step,
@@ -145,7 +146,9 @@ def hybrid():
 def test_resize_bilinear_align_corners_matches_jax(shape, out):
     x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
     want = np.asarray(jax_resize(jnp.asarray(x), *out))
-    got = tu.resize_bilinear_align_corners(torch.from_numpy(x), *out).numpy()
+    # the port's shared op (ops/resize.py) takes the port's NCHW layout
+    got = resize_bilinear_align_corners(torch.from_numpy(x).permute(0, 3, 1, 2), *out)
+    got = got.permute(0, 2, 3, 1).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
@@ -506,6 +509,8 @@ def test_builder_builds_the_configured_network(shrunk_registry):
     assert (group["momentum"], group["weight_decay"], group["dampening"], group["nesterov"]) == \
         (0.9, 0.0001, 0, False)
     assert builder.segmenter_config().min_confidence == 0.0
-    for network in ("EMANet", "PixelEnsemble"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_train_builder_class({"network": network})
+    from synthesis_in_style_tpu_torch.training_builder import EMANetTrainBuilder
+
+    assert get_train_builder_class({"network": "EMANet"}) is EMANetTrainBuilder
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_train_builder_class({"network": "PixelEnsemble"})
