@@ -215,8 +215,33 @@
    with TF32 off fused within 1e-5 of unfused; pages/s unfused, fused and
    fused bfloat16, the bfloat16 class maps' agreement reported; one fused
    page profiled).
+14. The DatasetGAN branch, after step 13, on step 8's StyleGAN2 snapshot
+   (256px, F = 5888 features a pixel): `create_dataset_for_activation_
+   classification -n 10 -b 10 --save-latents --save-activations -ge` (8
+   train, 2 test images; images/s and the tensors.npz write's seconds),
+   seeded rectangles of the class colours as hand labels; `train` on
+   configs/dataset_creation/dataset_gan_wpi_stylegan2.yaml with the keys
+   it lacks filled in (num_classes, tensor_path, checkpoint; as shipped it
+   raises KeyError in both packages), generate: true, 3 members, batch 4
+   pixels, 500 iterations, the datasets' length cut so that an epoch ends
+   at 250 and the training set is regenerated on the card (iterations/s,
+   the step alone over 50 steps and one profiled, each regeneration's
+   seconds, the dice, peak reserved memory); one ensemble step from that
+   state on the card and on the CPU with TF32 off (every parameter within
+   1e-5 of the largest parameter, every BatchNorm statistic of the largest
+   statistic); the same config with generate: false on the stored
+   activations, 50 iterations; `create_dataset_for_segmentation` with
+   configs/dataset_creation/stylegan2_dataset_gan_bw_hwp_wpi.json and the
+   ensemble's snapshot, `-n 32 -b 16` (a warm-up at -n 16, then measured:
+   labelled images/s, peak reserved memory) and its class map on 2 images
+   card vs CPU with TF32 off (>= 0.999 of pixels); then 20 iterations of
+   dataset_gan_wpi_swagan.yaml (filled in) on step 13's SWAGAN snapshot,
+   its feature length read from its activations. The activation, training
+   and dataset paths run with launch counts from 0 (the bias-act forward
+   and the blur tail must run on each), and the two kernels are held
+   against their plain versions at every (shape, dtype) each path launched.
    Steps 5, 7 to 10, the GAN legs of 11, the training and pages of 12
-   and the paths of 13 run with PyTorch's defaults (TF32 cuDNN
+   and the paths of 13 and 14 run with PyTorch's defaults (TF32 cuDNN
    convolutions, float32 matmuls).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
@@ -289,6 +314,15 @@ EMANET_WARMUP at image_size 64, batch 2, num_workers 0, EMANET_CHECK_BATCH
 1, profile_call stubbed, PAGE_H / PAGE_W / NUM_PAGES shrunk:
 `check_emanet_card_vs_cpu()`, `emanet_training(root, pairs, fns)` and
 `emanet_pages(root, snap, pages, gt, fns)` (~2 min).
+The dataset_gan phase rehearses with DEVICE = "cpu": `dataset_gan_phase(root,
+gan_snapshot, swagan_snapshot, fns)` on two seeded 32px g_ema snapshots
+(`{"g_ema": state dict}` in `<run>/checkpoints/` beside `<run>/config/
+config.json`; latent_size 32, n_mlp 2), DATASET_GAN_CUTS {"image_size":
+32}, DATASET_GAN_ITERATIONS (20, 10), DATASET_GAN_SHORT 5,
+DATASET_GAN_SWAGAN (4, 4), DATASET_GAN_SYNTHESIS (4, 2), NUM_IMAGES 4 and
+stand-in counters (a `launches` count and a `shapes` Counter) that
+wrappers of `ops.fused_act.fused_leaky_relu_plain` and
+`models.stylegan2.blur_demod_noise_bias_act` increment (~15 s).
 So does the capstone phase: `capstone_phase(root, fns)` with DEVICE =
 "cpu", CAPSTONE_WIDTHS giving both legs a small generator (latent_size 32,
 n_mlp 2, batch_size 4, image_size 16 / 32), small CAPSTONE_*_CUTS and
@@ -4161,6 +4195,554 @@ def swagan_emanet_phase(root: Path, train_pages: Path, pages: Path, pages_gt: Pa
     return {"training": training, "dataset": dataset, "emanet": emanet, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# the DatasetGAN branch: activation dataset, PixelEnsemble training, DatasetGAN
+# dataset synthesis
+
+
+DATASET_GAN_YAML = REPO_ROOT / "configs" / "dataset_creation" / "dataset_gan_wpi_stylegan2.yaml"
+DATASET_GAN_SWAGAN_YAML = REPO_ROOT / "configs" / "dataset_creation" / \
+    "dataset_gan_wpi_swagan.yaml"
+DATASET_GAN_CREATION = REPO_ROOT / "configs" / "dataset_creation" / \
+    "stylegan2_dataset_gan_bw_hwp_wpi.json"
+DATASET_GAN_IMAGES = (10, 10)  # the activation CLI's -n, -b: 8 train and 2 test images
+DATASET_GAN_ITERATIONS = (500, 250)  # the generate: true run, and its forced epoch
+DATASET_GAN_SHORT = 50  # iterations of the generate: false run
+DATASET_GAN_SWAGAN = (4, 20)  # SWAGAN: the activation CLI's -n (and -b), iterations
+DATASET_GAN_SYNTHESIS = (32, 16)  # the dataset CLI's -n, -b (after a warm-up at -n b)
+DATASET_GAN_CHECK_IMAGES = 2  # images of the class map card vs CPU
+DATASET_GAN_STEP_TOLERANCE = 1e-5  # the ensemble step card vs CPU, of max|ref|
+DATASET_GAN_MAP_AGREEMENT = 0.999  # share of class-map pixels card vs CPU
+DATASET_GAN_CUTS = {}  # a CPU rehearsal shrinks the training configs' image_size here
+
+
+def _gan_config(snapshot: Path) -> dict:
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+
+    return load_config_from_checkpoint(snapshot)
+
+
+def _reset_peak() -> None:
+    """Peak memory counted from here, with what earlier runs left freed."""
+    import gc
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_reserved_gb() -> float:
+    return torch.cuda.max_memory_reserved() / 1e9 if DEVICE == "cuda" else 0.0
+
+
+def _count_from_zero(fns: dict) -> None:
+    """Launch counts from 0, the generator kernels' shape counters cleared."""
+    _zero(fns)
+    for name in ("fused_bias_act", "fused_blur"):
+        fns[name].shapes.clear()
+
+
+def _path_shapes(fns: dict) -> dict:
+    return {name: dict(fns[name].shapes) for name in ("fused_bias_act", "fused_blur")}
+
+
+def check_path_kernels(path: str, shapes: dict) -> list:
+    """The bias-act forward and the blur tail at every (shape, dtype) the
+    path launched, each against its plain version on random inputs of that
+    shape (the bias-act forward within BIAS_ACT_TOLERANCES; the blur tail
+    within 1e-4 in float32 and 2^-7 x max|ref| in bfloat16, as at its main
+    shapes); the blur rows with the kernel's and the plain version's ms."""
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import (
+        blur_demod_noise_bias_act_cuda,
+        blur_demod_noise_bias_act_plain,
+    )
+
+    if DEVICE != "cuda":
+        return []
+    tols = dict(BIAS_ACT_TOLERANCES)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows = []
+    for (shape, dtype), launches in shapes["fused_bias_act"].items():
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype)
+        err, _ = _check_forward(f"{path} {shape} {dtype}", x, b, tols[dtype])
+        rows.append({"kernel": "fused_bias_act", "shape": list(shape),
+                     "dtype": str(dtype).split(".")[-1], "launches": launches,
+                     "max_abs_err": err})
+    for (shape, dtype), launches in shapes["fused_blur"].items():
+        batch, side, _, c = shape
+        args = (torch.randn(shape, generator=g, device="cuda").to(dtype),
+                torch.rand((batch, c), generator=g, device="cuda") + 0.5,
+                torch.randn((batch, side - 1, side - 1), generator=g, device="cuda"),
+                torch.randn((c,), generator=g, device="cuda"))
+        got = blur_demod_noise_bias_act_cuda(*args).float()
+        ref = blur_demod_noise_bias_act_plain(*args).float()
+        err = (got - ref).abs().max().item()
+        limit = 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.abs().max().item()
+        if not err <= limit:
+            raise AssertionError(f"fused_blur on the {path} path, {shape} {dtype}: "
+                                 f"err {err} > {limit}")
+        rows.append({"kernel": "fused_blur", "shape": list(shape),
+                     "dtype": str(dtype).split(".")[-1], "launches": launches,
+                     "max_abs_err": err,
+                     "ms": bench_ms(lambda: blur_demod_noise_bias_act_cuda(*args)),
+                     "plain_ms": bench_ms(lambda: blur_demod_noise_bias_act_plain(*args))})
+    worst = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k] or [0.0])
+             for k in ("fused_bias_act", "fused_blur")}
+    log(f"{path}: the bias-act forward at {len(shapes['fused_bias_act'])} and the blur tail at "
+        f"{len(shapes['fused_blur'])} (shape, dtype)s against their plain versions, worst "
+        f"errors {worst}")
+    return rows
+
+
+def write_hand_labels(directory: Path, entries: list, size: int) -> None:
+    """Seeded rectangles of the two text classes' colours on background as
+    each entry's hand label (tests/test_dataset_gan.py paints a square)."""
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.utils.png import write_png
+
+    rs = np.random.default_rng(SEED + 21)
+    for entry in entries:
+        label = np.zeros((size, size, 3), np.uint8)
+        for color in ((0, 0, 255), (255, 0, 0)):
+            for _ in range(3):
+                y, x = rs.integers(0, size * 3 // 4, 2)
+                h, w = rs.integers(size // 16, size // 4, 2)
+                label[y:y + h, x:x + w] = color
+        write_png(directory / entry["label"], label)
+
+
+def run_activation_cli(snapshot: Path, out: Path, n: int, batch: int,
+                       activations: bool = True) -> dict:
+    """`create_dataset_for_activation_classification` on DEVICE (`-n n -b
+    batch --save-latents -ge`, with `--save-activations`): its seconds and
+    those of its tensors.npz write."""
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.cli import (
+        create_dataset_for_activation_classification as cdac,
+    )
+
+    argv = [str(snapshot), str(out), "-n", str(n), "-b", str(batch), "--save-latents", "-ge",
+            "-d", DEVICE] + (["--save-activations"] if activations else [])
+    original, npz = np.savez_compressed, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        original(*args, **kwargs)
+        npz.append(time.perf_counter() - t0)
+
+    np.savez_compressed = timed
+    try:
+        _sync()
+        t0 = time.perf_counter()
+        cdac.main(cdac.build_parser().parse_args(argv))
+        _sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        np.savez_compressed = original
+    entries = json.loads((out / "full_data.json").read_text())
+    train = json.loads((out / "train.json").read_text())
+    if len(entries) != n or len(train) != int(n * 0.8):
+        raise AssertionError(f"activation CLI: {len(entries)} entries, {len(train)} train")
+    return {"seconds": seconds, "npz_seconds": npz[0], "images_per_s": n / seconds,
+            "npz_mb": (out / "tensors.npz").stat().st_size / 1e6, "entries": entries}
+
+
+def dataset_gan_config(root: Path, source: Path, acts: Path, snapshot: Path, name: str,
+                       **cuts) -> Path:
+    """The shipped training yaml with the three keys it lacks filled in
+    (num_classes; tensor_path and checkpoint are null there) and the cuts,
+    as JSON."""
+    import yaml
+
+    config = {**yaml.safe_load(source.read_text()), "num_classes": 3,
+              "tensor_path": str(acts / "tensors.npz"), "checkpoint": str(snapshot),
+              **DATASET_GAN_CUTS, **cuts}
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+class _forced_epoch:
+    """The DatasetGAN datasets' length cut to `iterations` batches, so that
+    the pixel stream's epoch passes 1 after that many iterations (the real
+    epoch is N x 65536 / batch: 131072 iterations at N = 8, batch 4)."""
+
+    def __init__(self, iterations: int, batch: int):
+        self.pixels = iterations * batch
+
+    def __enter__(self):
+        from synthesis_in_style_tpu_torch.data.dataset_gan_dataset import BaseDatasetGANDataset
+
+        self.cls, self.original = BaseDatasetGANDataset, BaseDatasetGANDataset.__len__
+        self.cls.__len__ = lambda dataset: self.pixels
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__len__ = self.original
+
+
+class _timed_resets:
+    """Seconds (synchronized) of every reset_dataset call, by manifest."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def __enter__(self):
+        from synthesis_in_style_tpu_torch.data.dataset_gan_dataset import (
+            DatasetGANGenerationDataset,
+        )
+
+        self.cls, original = DatasetGANGenerationDataset, \
+            DatasetGANGenerationDataset.reset_dataset
+        self.original = original
+
+        def timed(dataset):
+            _sync()
+            t0 = time.perf_counter()
+            original(dataset)
+            _sync()
+            self.seconds.append((dataset.json_path.name, time.perf_counter() - t0))
+
+        self.cls.reset_dataset = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.reset_dataset = self.original
+
+
+def run_dataset_gan_training(config: Path, acts: Path, log_dir: Path):
+    """`train` on DEVICE with the activation CLI's train.json / test.json."""
+    from synthesis_in_style_tpu_torch.cli import train
+
+    args = train.build_parser().parse_args(
+        [str(config), "--images", str(acts / "train.json"), "--val-images",
+         str(acts / "test.json"), "--class-to-color-map", str(COLOR_MAP), "-d", DEVICE])
+    args.log_dir = str(log_dir)
+    _sync()
+    t0 = time.perf_counter()
+    trainer = train.main(args)
+    _sync()
+    return trainer, time.perf_counter() - t0
+
+
+def check_dataset_gan_run(trainer, log_dir: Path, iterations: int) -> dict:
+    """Every member's loss finite, the dice in [0, 1], the last snapshot
+    with every member and optimizer state."""
+    lines = [json.loads(line) for line in (log_dir / "log.jsonl").read_text().splitlines()]
+    members = trainer.updater.ensemble.num_models
+    losses = {f"loss/CrossEntropyLoss_network_{i}": [l[f"loss/CrossEntropyLoss_network_{i}"]
+                                                    for l in lines
+                                                    if f"loss/CrossEntropyLoss_network_{i}" in l]
+              for i in range(members)}
+    if not all(v and all(math.isfinite(x) for x in v) for v in losses.values()):
+        raise AssertionError(f"DatasetGAN losses not all finite: {losses}")
+    dice = [l["evaluation/Dice Score"] for l in lines if "evaluation/Dice Score" in l]
+    if not dice or not all(0.0 <= d <= 1.0 for d in dice):
+        raise AssertionError(f"DatasetGAN dice {dice}")
+    snapshot = log_dir / "checkpoints" / f"iter_{iterations:08d}.pt"
+    keys = sorted(torch.load(snapshot, weights_only=True))
+    want = sorted([f"network_{i}" for i in range(members)] +
+                  [f"optimizer_{i}" for i in range(members)] + ["iteration"])
+    if keys != want:
+        raise AssertionError(f"snapshot {snapshot.name}: {keys}")
+    return {"first_losses": {k: v[0] for k, v in losses.items()},
+            "last_losses": {k: v[-1] for k, v in losses.items()}, "dice": dice,
+            "snapshot": str(snapshot)}
+
+
+def ensemble_step_alone(updater, steps: int = 50) -> dict:
+    """The ensemble step on one batch already on the card: ms a step over
+    `steps` synchronized steps, then one step under torch.profiler."""
+    from synthesis_in_style_tpu_torch.updaters.dataset_gan_updater import ensemble_train_step
+
+    batch = next(updater.iterators["feature_vectors"])
+
+    def step():
+        ensemble_train_step(updater.ensemble, updater.optimizer, batch)
+
+    for _ in range(5):
+        step()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    _sync()
+    out = {"step_ms": (time.perf_counter() - t0) * 1e3 / steps}
+    if DEVICE == "cuda":
+        out["profile"] = profile_call(step, top=6)
+    return out
+
+
+def ensemble_step_card_vs_cpu(updater, dataset) -> dict:
+    """One ensemble step from the same state (the trained members and a copy
+    of their Adam state) on the same batch of 4 pixels, on the card and on
+    the CPU, TF32 off: every parameter within DATASET_GAN_STEP_TOLERANCE of
+    the largest parameter, every BatchNorm statistic of the largest
+    statistic (the CPU's), and the losses."""
+    import copy
+
+    from synthesis_in_style_tpu_torch.updaters.dataset_gan_updater import (
+        EnsembleOptimizer,
+        ensemble_train_step,
+    )
+
+    batch = next(dataset.sample_pixel_batches(4, SEED + 22))
+    cpu = copy.deepcopy(updater.ensemble).cpu()
+    group = updater.optimizer.adam.param_groups[0]
+    optimizer = EnsembleOptimizer(cpu, group["lr"], group["betas"], group["weight_decay"])
+    # a copy: load_state_dict keeps the tensors it can (Adam's step counts)
+    optimizer.adam.load_state_dict(copy.deepcopy(updater.optimizer.adam.state_dict()))
+    set_tf32(False)
+    card_losses = ensemble_train_step(updater.ensemble, updater.optimizer, batch)
+    cpu_losses = ensemble_train_step(cpu, optimizer, {k: v.cpu() for k, v in batch.items()})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    ref = cpu.state_dict()
+    got = {k: v.cpu() for k, v in updater.ensemble.state_dict().items()}
+    out = {"losses_err": (card_losses.cpu() - cpu_losses).abs().max().item()}
+    for kind, keys in (("parameters", [k for k in ref if "running" not in k]),
+                       ("statistics", [k for k in ref if "running" in k])):
+        scale = max(ref[k].abs().max().item() for k in keys)
+        errs = {k: (got[k] - ref[k]).abs().max().item() for k in keys}
+        worst = max(errs, key=errs.get)
+        out[kind] = {"worst": worst, "err_of_max": errs[worst] / scale}
+        if not errs[worst] <= DATASET_GAN_STEP_TOLERANCE * scale:
+            raise AssertionError(f"ensemble step card vs CPU: {kind} {worst} "
+                                 f"{errs[worst] / scale} of max|ref|")
+    if not out["losses_err"] <= DATASET_GAN_STEP_TOLERANCE * cpu_losses.abs().max().item():
+        raise AssertionError(f"ensemble step card vs CPU: losses {card_losses} vs {cpu_losses}")
+    return out
+
+
+def run_dataset_gan_cli(snapshot: Path, classifier: Path, out: Path, n: int, batch: int) -> dict:
+    """The dataset CLI with the shipped DatasetGAN creation config and the
+    ensemble: build_dataset timed, then the split and coco_gt.json; all n
+    images written (the segmenter drops none)."""
+    from synthesis_in_style_tpu_torch.cli import create_dataset_for_segmentation as cds
+
+    args = cds.build_parser().parse_args(
+        [str(snapshot), str(DATASET_GAN_CREATION), "-n", str(n), "-b", str(batch),
+         "--classifier-path", str(classifier), "-s", str(out), "-d", DEVICE])
+    _sync()
+    t0 = time.perf_counter()
+    written = cds.build_dataset(args, json.loads(DATASET_GAN_CREATION.read_text()))
+    _sync()
+    seconds = time.perf_counter() - t0
+    args.only_create_train_val_split = True
+    cds.main(args)
+    if written != n or not (out / "coco_gt.json").exists():
+        raise AssertionError(f"DatasetGAN dataset CLI: {written} of {n} written")
+    return {"written": written, "seconds": seconds, "images_per_s": written / seconds}
+
+
+def write_seeded_ensemble(path: Path, features: int) -> Path:
+    """A 3-member, 3-class ensemble from a seeded torch.Generator as a
+    snapshot: its votes mix the classes, where the trained ensemble's (on
+    labels that the random-weight generator's activations cannot predict)
+    are background almost everywhere."""
+    from synthesis_in_style_tpu_torch.models.pixel_classifier import PixelEnsembleClassifier
+    from synthesis_in_style_tpu_torch.utils.checkpoint import save_pixel_ensemble_snapshot
+
+    ensemble = PixelEnsembleClassifier(3, features, 3)
+    ensemble.init_weights(torch.Generator().manual_seed(SEED + 24))
+    save_pixel_ensemble_snapshot(path, [ensemble.member_state_dict(i) for i in range(3)], [], 0)
+    return path
+
+
+def class_map_card_vs_cpu(snapshot: Path, classifier: Path, mixed: bool = False) -> dict:
+    """The DatasetGAN segmenter on the card and on the CPU (TF32 off) on the
+    same activations of DATASET_GAN_CHECK_IMAGES generated images: the share
+    of pixels whose class agrees (votes flip only at float32 near-ties), and
+    each class's share of the card's map; with `mixed`, at least two classes
+    must hold 1 % of it each (else the agreement says little)."""
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+    from synthesis_in_style_tpu_torch.segmentation.dataset_gan_segmenter import (
+        DatasetGANSegmenter,
+    )
+    from synthesis_in_style_tpu_torch.utils.dataset_creation import make_generate_fn
+
+    config = _gan_config(snapshot)
+    creation = json.loads(DATASET_GAN_CREATION.read_text())
+    z = torch.randn((DATASET_GAN_CHECK_IMAGES, config.get("latent_size", 512)),
+                    generator=torch.Generator().manual_seed(SEED + 23)).to(DEVICE)
+    common = dict(base_dir=snapshot.parent, image_size=config["image_size"],
+                  class_to_color_map=creation["class_to_color_map"], classifier_path=classifier)
+    set_tf32(False)
+    try:
+        activations, _ = make_generate_fn(load_generator(snapshot, config, device=DEVICE))(z)
+        card, _ = DatasetGANSegmenter(device=DEVICE, **common).create_segmentation_image(
+            activations)
+        cpu, _ = DatasetGANSegmenter(device="cpu", **common).create_segmentation_image(
+            {k: v.cpu() for k, v in activations.items()})
+    finally:
+        set_tf32(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    agreement = float(np.mean(np.all(card == cpu, axis=-1)))
+    colors = {name: tuple(int(creation["class_to_color_map"][name][i:i + 2], 16)
+                          for i in (1, 3, 5)) for name in creation["class_to_color_map"]}
+    shares = {name: float(np.mean(np.all(card == color, axis=-1)))
+              for name, color in colors.items()}
+    if not agreement >= DATASET_GAN_MAP_AGREEMENT:
+        raise AssertionError(f"DatasetGAN class map card vs CPU: {agreement} of pixels agree")
+    if mixed and sum(share >= 0.01 for share in shares.values()) < 2:
+        raise AssertionError(f"DatasetGAN class map of {classifier.name}: one class, {shares}")
+    return {"agreement": agreement, "class_shares": shares}
+
+
+def dataset_gan_swagan(root: Path, snapshot: Path, fns: dict) -> dict:
+    """A few iterations of the shipped dataset_gan_wpi_swagan.yaml (filled
+    in, generate: true) on the SWAGAN snapshot, on latents from the
+    activation CLI; the ensemble's feature length is read from SWAGAN's
+    activations."""
+    n, iterations = DATASET_GAN_SWAGAN
+    acts = root / "dataset_gan_swagan_acts"
+    act = run_activation_cli(snapshot, acts, n, n, activations=False)
+    write_hand_labels(acts, act["entries"], _gan_config(snapshot)["image_size"])
+    config = dataset_gan_config(root, DATASET_GAN_SWAGAN_YAML, acts, snapshot,
+                                "dataset_gan_swagan", max_iter=iterations,
+                                snapshot_save_iter=iterations, image_save_iter=iterations,
+                                log_iter=10)
+    _reset_peak()
+    _zero(fns)
+    trainer, wall = run_dataset_gan_training(config, acts, root / "dataset_gan_swagan_logs")
+    out = {"features": trainer.updater.ensemble.dim, "seconds": wall,
+           "launches": _launches(fns), "peak_reserved_gb": _peak_reserved_gb(),
+           **check_dataset_gan_run(trainer, root / "dataset_gan_swagan_logs", iterations)}
+    log(f"DatasetGAN on SWAGAN ({DATASET_GAN_SWAGAN_YAML.name}, generate: true, "
+        f"{iterations} iterations): F = {out['features']}, whole CLI {wall:.3f} s, dice "
+        f"{out['dice']}, peak reserved {out['peak_reserved_gb']:.2f} GB; launches "
+        f"{out['launches']}")
+    return out
+
+
+def dataset_gan_phase(root: Path, gan_snapshot: Path, swagan_snapshot: Path, fns: dict) -> dict:
+    """The DatasetGAN branch on the training phase's StyleGAN2 snapshot:
+    the activation CLI, hand labels, PixelEnsemble training with generate:
+    true (a forced epoch crossing regenerates the set) and false, the
+    ensemble step alone and card vs CPU, the dataset CLI with its snapshot
+    and the class map card vs CPU; then a few iterations on SWAGAN. The
+    three paths (activations, training, dataset) run with launch counts
+    from 0, their bias-act and blur shapes held against the plain
+    versions."""
+    from synthesis_in_style_tpu_torch.data.dataset_gan_dataset import DatasetGANDataset
+
+    marks = [time.perf_counter()]
+    size = _gan_config(gan_snapshot)["image_size"]
+    n, batch = DATASET_GAN_IMAGES
+    acts = root / "dataset_gan_acts"
+    _reset_peak()
+    _count_from_zero(fns)
+    activations = run_activation_cli(gan_snapshot, acts, n, batch)
+    activations.update(launches=_launches(fns), peak_reserved_gb=_peak_reserved_gb())
+    activations["path_kernels"] = check_path_kernels("dataset_gan_activations",
+                                                     _path_shapes(fns))
+    write_hand_labels(acts, activations.pop("entries"), size)
+    log(f"DatasetGAN activation CLI (-n {n} -b {batch}, --save-activations): "
+        f"{activations['images_per_s']:.3f} images/s (whole CLI {activations['seconds']:.3f} s, "
+        f"of it the tensors.npz write {activations['npz_seconds']:.3f} s, "
+        f"{activations['npz_mb']:.1f} MB); launches {activations['launches']}")
+    marks.append(time.perf_counter())
+
+    iterations, epoch = DATASET_GAN_ITERATIONS
+    config = dataset_gan_config(root, DATASET_GAN_YAML, acts, gan_snapshot,
+                                "dataset_gan_generate", max_iter=iterations,
+                                snapshot_save_iter=iterations, image_save_iter=iterations,
+                                log_iter=50)
+    ensemble_batch = json.loads(config.read_text())["batch_size"]
+    _reset_peak()
+    _count_from_zero(fns)
+    with _forced_epoch(epoch, ensemble_batch), _timed_resets() as resets:
+        trainer, wall = run_dataset_gan_training(config, acts, root / "dataset_gan_logs")
+    training = {"launches": _launches(fns), "peak_reserved_gb": _peak_reserved_gb(),
+                "cli_seconds": wall, "loop_seconds": trainer.seconds,
+                "iterations": trainer.updater.iteration,
+                "iterations_per_s": trainer.updater.iteration / trainer.seconds,
+                "features": trainer.updater.ensemble.dim, "resets": resets.seconds,
+                **check_dataset_gan_run(trainer, root / "dataset_gan_logs", iterations)}
+    training["path_kernels"] = check_path_kernels("dataset_gan_training", _path_shapes(fns))
+    crossings = [name for name, _ in resets.seconds]
+    if crossings != ["train.json", "test.json", "train.json"]:
+        raise AssertionError(f"DatasetGAN training: resets {crossings} (want construction of "
+                             "train and test, then the crossing)")
+    training.update(ensemble_step_alone(trainer.updater))
+    training["card_vs_cpu"] = ensemble_step_card_vs_cpu(
+        trainer.updater, trainer.updater.iterators["feature_vectors"].dataset)
+    log(f"DatasetGAN training ({DATASET_GAN_YAML.name} filled in, generate: true, batch "
+        f"{ensemble_batch} pixels, F = {training['features']}, {iterations} iterations, an "
+        f"epoch forced to {epoch}): {training['iterations_per_s']:.2f} iterations/s (train loop "
+        f"{trainer.seconds:.3f} s, whole CLI {wall:.3f} s), the step alone "
+        f"{training['step_ms']:.4f} ms, regeneration {resets.seconds} s, dice "
+        f"{training['dice']}, peak reserved {training['peak_reserved_gb']:.2f} GB; launches "
+        f"{training['launches']}")
+    if "profile" in training:
+        prof = training["profile"]
+        log(f"profiled ensemble step: wall {prof['wall_s']:.6f} s, device busy "
+            f"{prof['device_busy_s']:.6f} s ({prof['device_busy_share']:.3f}); top kernels: "
+            + "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.6f} s"
+                        for k in prof["top_kernels"]))
+    log(f"ensemble step card vs CPU (TF32 off): {training['card_vs_cpu']}")
+    classifier = Path(training["snapshot"])
+    del trainer
+    marks.append(time.perf_counter())
+
+    _reset_peak()
+    config = dataset_gan_config(root, DATASET_GAN_YAML, acts, gan_snapshot, "dataset_gan_stored",
+                                generate=False, max_iter=DATASET_GAN_SHORT,
+                                snapshot_save_iter=DATASET_GAN_SHORT,
+                                image_save_iter=DATASET_GAN_SHORT, log_iter=10)
+    trainer, wall = run_dataset_gan_training(config, acts, root / "dataset_gan_stored_logs")
+    if not isinstance(trainer.updater.iterators["feature_vectors"].dataset, DatasetGANDataset):
+        raise AssertionError("generate: false did not read the stored activations")
+    stored = {"cli_seconds": wall, "loop_seconds": trainer.seconds,
+              "iterations_per_s": trainer.updater.iteration / trainer.seconds,
+              "peak_reserved_gb": _peak_reserved_gb(),
+              **check_dataset_gan_run(trainer, root / "dataset_gan_stored_logs",
+                                      DATASET_GAN_SHORT)}
+    del trainer
+    log(f"DatasetGAN training, generate: false ({DATASET_GAN_SHORT} iterations on the stored "
+        f"tensors.npz): whole CLI {wall:.3f} s (reading and upsampling the stored activations "
+        f"in), {stored['iterations_per_s']:.2f} iterations/s, dice {stored['dice']}, peak "
+        f"reserved {stored['peak_reserved_gb']:.2f} GB")
+    marks.append(time.perf_counter())
+
+    n, batch = DATASET_GAN_SYNTHESIS
+    run_dataset_gan_cli(gan_snapshot, classifier, root / "dataset_gan_warmup", batch, batch)
+    _reset_peak()
+    _count_from_zero(fns)
+    images = root / "dataset_gan_images"
+    dataset = run_dataset_gan_cli(gan_snapshot, classifier, images, n, batch)
+    dataset.update(launches=_launches(fns), peak_reserved_gb=_peak_reserved_gb())
+    if check_outputs(images, size) != n:
+        raise AssertionError("DatasetGAN dataset CLI: PNG pairs other than written")
+    dataset["path_kernels"] = check_path_kernels("dataset_gan_dataset", _path_shapes(fns))
+    seeded = write_seeded_ensemble(root / "dataset_gan_seeded.pt", training["features"])
+    dataset["class_map_card_vs_cpu"] = {
+        "trained": class_map_card_vs_cpu(gan_snapshot, classifier),
+        "seeded": class_map_card_vs_cpu(gan_snapshot, seeded, mixed=True)}
+    log(f"DatasetGAN dataset CLI ({DATASET_GAN_CREATION.name}, -n {n} -b {batch}): "
+        f"{dataset['written']} images in {dataset['seconds']:.3f} s = "
+        f"{dataset['images_per_s']:.2f} labelled images/s (warm), peak reserved "
+        f"{dataset['peak_reserved_gb']:.2f} GB; launches {dataset['launches']}; class map card "
+        f"vs CPU {dataset['class_map_card_vs_cpu']}")
+    marks.append(time.perf_counter())
+
+    swagan = dataset_gan_swagan(root, swagan_snapshot, fns)
+    marks.append(time.perf_counter())
+    seconds = dict(zip(("activations", "training", "training_stored", "dataset", "swagan"),
+                       (b - a for a, b in zip(marks, marks[1:]))))
+    log("dataset_gan phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) +
+        f"; whole phase {marks[-1] - marks[0]:.1f}")
+    return {"activations": activations, "training": training, "stored": stored,
+            "dataset": dataset, "swagan": swagan, "seconds": seconds}
+
+
 def flash_only(smi: str, detail_path) -> int:
     """`--only flash`: what ptxas reported for the flash kernels, then
     check_flash_attention."""
@@ -4313,6 +4895,12 @@ def main() -> int:
         swagan_emanet = swagan_emanet_phase(root, pages, Path(segmenter["pages"]),
                                             Path(segmenter["pages_gt"]), fns, detail)
         phases.append(("swagan_emanet", time.perf_counter()))
+        # the DatasetGAN branch on the training path's and the SWAGAN snapshots
+        (gan_run,) = (root / "train" / "stylegan2").iterdir()
+        dataset_gan = dataset_gan_phase(
+            root, gan_run / "checkpoints" / f"iter_{TRAIN_OVERRIDES['max_iter']:08d}.pt",
+            Path(swagan_emanet["training"]["snapshot"]), fns)
+        phases.append(("dataset_gan", time.perf_counter()))
         # the capstone recipe's legs: fixture, 128px GAN (resumed), 256px
         # GAN (warm-started), the five-leg chain
         capstone = capstone_phase(root, fns)
@@ -4352,7 +4940,13 @@ def main() -> int:
             ("swagan_dataset", swagan_emanet["dataset"]["launches"],
              ("fused_bias_act", "fused_blur", "segmented_cc")),
             ("emanet_page_inference", swagan_emanet["emanet"]["pages"]["launches"],
-             ("segmented_cc",))):
+             ("segmented_cc",)),
+            ("dataset_gan_activations", dataset_gan["activations"]["launches"],
+             ("fused_bias_act", "fused_blur")),
+            ("dataset_gan_training", dataset_gan["training"]["launches"],
+             ("fused_bias_act", "fused_blur")),
+            ("dataset_gan_dataset", dataset_gan["dataset"]["launches"],
+             ("fused_bias_act", "fused_blur"))):
         for name in needed:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path_name} path")
@@ -4423,7 +5017,9 @@ def main() -> int:
                    "swagan_discovery": swagan_emanet["dataset"]["discovery_launches"][name],
                    "swagan_dataset": swagan_emanet["dataset"]["launches"][name],
                    "emanet_training": swagan_emanet["emanet"]["launches"][name],
-                   "emanet_page_inference": swagan_emanet["emanet"]["pages"]["launches"][name]}
+                   "emanet_page_inference": swagan_emanet["emanet"]["pages"]["launches"][name],
+                   **{f"dataset_gan_{leg}": dataset_gan[leg]["launches"][name]
+                      for leg in ("activations", "training", "dataset")}}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
                      "replaces": tpu,
@@ -4455,7 +5051,8 @@ def main() -> int:
                       "one_thread_png": path_1thread},
              "host_route": host_route, "discovery": discovery,
              "training": training, "segmenter": segmenter, "serving": serving,
-             "capstone": capstone, "transunet": transunet, "swagan_emanet": swagan_emanet},
+             "capstone": capstone, "transunet": transunet, "swagan_emanet": swagan_emanet,
+             "dataset_gan": dataset_gan},
             indent=1, default=str))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

@@ -9,9 +9,11 @@ half runs on the host by default (OpenCV-free contour tracing, polygon
 merge and drop rules, optionally in `--contour-workers` processes), or on
 the device with `--device-contours`. The loop is pipelined: batch i+1's
 synthesis and masks are dispatched before batch i's host half runs.
+`segmenter_type: dataset_gan` labels every pixel with the vote of the pixel
+ensemble at `--classifier-path` instead (a few images at a time on the
+device, no image dropped).
 
-Not ported yet (they raise NotImplementedError, see ROADMAP.md): --quantize
-and segmenter_type dataset_gan.
+Not ported yet (it raises NotImplementedError, see ROADMAP.md): --quantize.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.create_dataset_for_segmentation \\
@@ -37,7 +39,9 @@ from synthesis_in_style_tpu_torch.evaluation.coco_gt import (
     iter_through_images_in,
 )
 from synthesis_in_style_tpu_torch.models.factory import load_generator
+from synthesis_in_style_tpu_torch.segmentation.dataset_gan_segmenter import DatasetGANSegmenter
 from synthesis_in_style_tpu_torch.segmentation.dataset_segmenter import (
+    BaseDatasetSegmenter,
     BlackWhiteHandwrittenPrintedTextDatasetSegmenter,
 )
 from synthesis_in_style_tpu_torch.utils.dataset_creation import (
@@ -61,8 +65,6 @@ def check_supported(args: argparse.Namespace, creation_config: dict) -> None:
     """Raise on every option this port does not implement yet."""
     if getattr(args, "quantize", False) or creation_config.get("quantize", False):
         raise _not_ported("--quantize")
-    if creation_config["segmenter_type"] != "black_white_handwritten_printed":
-        raise _not_ported(f"segmenter_type {creation_config['segmenter_type']!r}")
 
 
 def get_dataset_segmenter(
@@ -71,7 +73,15 @@ def get_dataset_segmenter(
     image_size: int,
     semantic_segmentation_base_dir: Path,
     device,
-) -> BlackWhiteHandwrittenPrintedTextDatasetSegmenter:
+) -> BaseDatasetSegmenter:
+    segmenter_type = creation_config["segmenter_type"]
+    if segmenter_type == "dataset_gan":
+        return DatasetGANSegmenter(
+            base_dir=semantic_segmentation_base_dir, image_size=image_size,
+            class_to_color_map=creation_config["class_to_color_map"], device=device,
+            classifier_path=args.classifier_path)
+    if segmenter_type != "black_white_handwritten_printed":
+        raise NotImplementedError(f"unknown segmenter_type {segmenter_type!r}")
     if "only_keep_overlapping" not in creation_config:
         raise KeyError('The key "only_keep_overlapping" must be specified in the config file.')
     return BlackWhiteHandwrittenPrintedTextDatasetSegmenter(
@@ -96,7 +106,8 @@ def build_dataset(
     original_config_path: Optional[Path] = None,
 ) -> int:
     """Synthesize batches, segment them (host contour half, or the device
-    one with --device-contours), drop the images the drop rules flag, and
+    one with --device-contours; the DatasetGAN segmenter's vote for
+    segmenter_type dataset_gan), drop the images the drop rules flag, and
     save the rest as PNG pairs until `num_images` are written. Returns the
     number written."""
     check_supported(args, creation_config)
@@ -116,14 +127,17 @@ def build_dataset(
         config, seed=creation_config["seed"], device=device
     )
 
-    use_device_contours = bool(getattr(args, "device_contours", False))
+    # the DatasetGAN segmenter has no front and back half: it labels a batch
+    # in one call (`create_segmentation_image`)
+    can_pipeline = hasattr(segmenter, "begin_prepare")
+    use_device_contours = bool(getattr(args, "device_contours", False)) and can_pipeline
     contour_pool = None
-    if not use_device_contours and getattr(args, "contour_workers", 0) > 0:
+    if can_pipeline and not use_device_contours and getattr(args, "contour_workers", 0) > 0:
         from synthesis_in_style_tpu_torch.segmentation.contour_pool import ContourWorkerPool
 
         contour_pool = ContourWorkerPool(segmenter, args.contour_workers)
     contour_half = (contour_pool.segment_prepared if contour_pool is not None
-                    else segmenter.segment_prepared)
+                    else getattr(segmenter, "segment_prepared", None))
     generated = 0
     pending = None  # (images, masks, batch_size) of the batch in flight
 
@@ -132,9 +146,11 @@ def build_dataset(
         images_dev, masks, batch_size = pending_batch
         if use_device_contours:
             label_images, image_ids_to_drop = segmenter.finish_segment_on_device(masks)
-        else:
+        elif can_pipeline:
             label_images, image_ids_to_drop = contour_half(
                 segmenter.finish_prepare(masks), batch_size)
+        else:
+            label_images, image_ids_to_drop = segmenter.create_segmentation_image(masks)
         images = make_image(images_dev)
         if images.ndim == 3:  # --gray-fetch: replicate to RGB on the host
             images = np.repeat(images[..., None], 3, axis=-1)
@@ -160,8 +176,10 @@ def build_dataset(
                 images = _start_copy(images)  # ahead of the masks' copy and its event
                 if use_device_contours:
                     masks = segmenter.begin_segment_on_device(activations)
-                else:
+                elif can_pipeline:
                     masks = segmenter.begin_prepare(activations)
+                else:
+                    masks = activations
                 new_pending = (images, masks, int(z.shape[0]))
             if pending is not None:
                 process(pending)
@@ -261,7 +279,9 @@ def build_parser() -> argparse.ArgumentParser:
         type=lambda s: int(s) if s.lstrip("-").isdigit() else s,
         default=-1,
     )
-    parser.add_argument("--classifier-path", default=None)
+    parser.add_argument("--classifier-path", default=None,
+                        help="the pixel ensemble of segmenter_type dataset_gan: a snapshot "
+                        "of the training CLI, a reference .pt or a JAX .npz")
     parser.add_argument("-ssd", "--semantic-segmentation-base-dir", type=Path, default=None)
     parser.add_argument("-d", "--device", default="cuda",
                         help="torch device to synthesize and segment on (default cuda)")

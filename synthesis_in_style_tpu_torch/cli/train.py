@@ -17,10 +17,14 @@ Augmentation runs in the loader workers without OpenCV.
 
 `network: DocUFCN`, `network: TransUNet` (with `attention_impl: flash` it
 runs the port's CUDA flash attention on the card) and `network: EMANet`
-train.
+train on [image|mask] pairs. `network: PixelEnsemble` with `dataset:
+dataset_gan` trains a DatasetGAN pixel ensemble on the activation CLI's
+manifests (`generate: true` regenerates the activations from `checkpoint`'s
+generator every epoch, `generate: false` reads them from `tensor_path`);
+its snapshots hold `network_<i>` / `optimizer_<i>`.
 
 Not ported yet (each raises NotImplementedError, see ROADMAP.md): wandb
-logging, PixelEnsemble, `dataset: dataset_gan`, and more than one process.
+logging and more than one process.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.train <config.yaml> \\
@@ -44,6 +48,7 @@ from synthesis_in_style_tpu_torch.core.config import (
 )
 from synthesis_in_style_tpu_torch.core.extensions import LogWriter, LRReporter
 from synthesis_in_style_tpu_torch.core.trainer import Trainer
+from synthesis_in_style_tpu_torch.data.dataset_gan_dataset import build_dataset_gan_dataset
 from synthesis_in_style_tpu_torch.data.json_dataset import CachingLoader, resilient_loader
 from synthesis_in_style_tpu_torch.data.loader import make_loader, shutdown_workers
 from synthesis_in_style_tpu_torch.data.segmentation_dataset import AugmentedSegmentationDataset
@@ -77,10 +82,6 @@ def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
     if config.get("wandb_project_name"):
         raise _not_ported("wandb logging")
-    if config.get("network", "DocUFCN") not in ("DocUFCN", "TransUNet", "EMANet"):
-        raise _not_ported(f"network {config['network']}")
-    if config.get("dataset", "wpi") != "wpi":
-        raise _not_ported(f"dataset {config['dataset']}")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 or config.get("local_rank") is not None or \
             config.get("mpi_backend"):
         raise _not_ported("training in more than one process")
@@ -88,6 +89,10 @@ def check_supported(config: dict) -> None:
 
 def get_data_loader(json_path: Path, config: dict, args: argparse.Namespace,
                     validation: bool = False, pin_memory: bool = False):
+    """A loader over [image|mask] pairs, or for `dataset: dataset_gan` the
+    pixel dataset itself, on `config["device"]`."""
+    if config.get("dataset", "wpi") == "dataset_gan":
+        return build_dataset_gan_dataset(json_path, config, args, device=config["device"])
     image_loader = (CachingLoader(json_path.parent, config["cache_root"])
                     if config.get("cache_root") else resilient_loader)
     dataset = AugmentedSegmentationDataset(
@@ -132,9 +137,13 @@ def main(args: argparse.Namespace) -> Trainer:
         stop_trigger = (int(config["epochs"]), "epoch")
     updater = builder.get_updater()
     trainer = Trainer(updater, stop_trigger, log_dir=args.log_dir)
+    # the loaders' stream; a dataset_gan pixel stream starts again from its
+    # seed on resume, as the JAX package's does
+    images = updater.iterators.get("images")
     if resume_iteration:
         updater.iteration = resume_iteration
-        updater.iterators["images"].seek(resume_iteration)
+        if images is not None:
+            images.seek(resume_iteration)
     save_run_config(args.log_dir, config, args)
 
     evaluator = builder.get_evaluator()
@@ -151,8 +160,9 @@ def main(args: argparse.Namespace) -> Trainer:
         with trace(config.get("profile_dir")):
             trainer.train()
     finally:
-        updater.iterators["images"].close()
-        if val_loader is not None:
+        if images is not None:
+            images.close()
+        if val_loader is not None:  # a no-op on a dataset_gan dataset
             shutdown_workers(val_loader)
     return trainer
 

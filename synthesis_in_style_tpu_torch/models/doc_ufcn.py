@@ -35,12 +35,12 @@ from synthesis_in_style_tpu_torch.models.base_segmenter import SegmenterConfig
 ENCODER_DILATIONS = (1, 2, 4, 8, 16)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` (momentum 0.1 = flax's 0.9, eps 1e-5) whose running
-    variance moves towards the biased batch variance, as flax's does. The
-    normalization is torch's own (cuDNN on the card); after it, the running
-    variance is corrected from torch's unbiased update by the factor
-    (n - 1) / n on the part that update added."""
+class BiasedRunningVariance:
+    """Mixin for a torch BatchNorm whose running variance moves towards the
+    biased batch variance, as flax's does. The normalization is torch's own
+    (cuDNN on the card); after it, the running variance is corrected from
+    torch's unbiased update by the factor (n - 1) / n on the part that
+    update added."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -56,6 +56,11 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(kept + (running_var - kept) * ((n - 1) / n))
             self.num_batches_tracked.add_(1)
         return y
+
+
+class BatchNorm2d(BiasedRunningVariance, nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (momentum 0.1 = flax's 0.9, eps 1e-5) with flax's
+    running-variance update."""
 
 
 class ConvBNActDrop(nn.Module):

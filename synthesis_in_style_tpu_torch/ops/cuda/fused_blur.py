@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections import Counter
 from typing import Sequence, Tuple
 
 import torch
@@ -149,10 +150,13 @@ def blur_demod_noise_bias_act_cuda(
     )
     build.check(err, "sis_blur_tail")
     blur_demod_noise_bias_act_cuda.launches += 1
+    blur_demod_noise_bias_act_cuda.shapes[tuple(x.shape), x.dtype] += 1
     return out
 
 
 blur_demod_noise_bias_act_cuda.launches = 0
+# launches by (x's shape, dtype), counted with `launches`
+blur_demod_noise_bias_act_cuda.shapes = Counter()
 
 
 class FusedBlurTailFunction(torch.autograd.Function):

@@ -33,6 +33,11 @@ timestamped attempts (`--resume-ckpt latest`); `upscale_gan_snapshot_tree`
 and `merge_matching_leaves` warm-start a larger GAN from a smaller one's
 state dicts (`--init-ckpt`); `vgg16_features_params_from_jax` and
 `inception_v3_params_from_jax` carry the FID backbones' weights across.
+`pixel_ensemble_params_from_jax` carries a JAX DatasetGAN ensemble across
+(stacked members); `save_pixel_ensemble_snapshot` /
+`load_pixel_ensemble_state` write and read ensemble snapshots in the
+reference layout (`network_<i>`, `optimizer_<i>`), and read the JAX
+package's `save_pytree_npz` ensembles.
 """
 
 from __future__ import annotations
@@ -624,3 +629,95 @@ def inception_v3_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.T
     visit(variables["params"], variables["batch_stats"], ())
     return {k: torch.from_numpy(np.array(v, dtype=np.int64 if v.dtype == np.int64
                                          else np.float32)) for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# DatasetGAN pixel ensembles
+
+_ENSEMBLE_LAYERS = ("fc1", "bn1", "fc2", "bn2", "fc3")
+
+
+def pixel_ensemble_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's stacked PixelEnsembleClassifier variables
+    ({"params": {fc1: {kernel (M, in, out), bias}, bn1: {scale, bias}, ...},
+    "batch_stats": {bn1: {mean, var}, ...}}, leaves numpy) -> the port's
+    stacked state dict (`fc1.weight` (M, out, in), `bn1.running_var`, ...)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    for name in _ENSEMBLE_LAYERS:
+        p = params[name]
+        if name.startswith("fc"):
+            sd[f"{name}.weight"] = np.swapaxes(np.asarray(p["kernel"]), 1, 2)
+            sd[f"{name}.bias"] = np.asarray(p["bias"])
+        else:
+            sd[f"{name}.weight"] = np.asarray(p["scale"])
+            sd[f"{name}.bias"] = np.asarray(p["bias"])
+            sd[f"{name}.running_mean"] = np.asarray(stats[name]["mean"])
+            sd[f"{name}.running_var"] = np.asarray(stats[name]["var"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _member_keys(ckpt: Dict[str, Any], prefix: str) -> list:
+    """`<prefix>_<i>` keys in member order."""
+    keys = [k for k in ckpt if k.startswith(prefix + "_") and k[len(prefix) + 1:].isdigit()]
+    return sorted(keys, key=lambda k: int(k[len(prefix) + 1:]))
+
+
+def load_pixel_ensemble_state(path: Union[str, Path]) -> Dict[str, Any]:
+    """{"ensemble": stacked state dict[, "optimizers": per-member torch
+    optimizer states, "iteration": N]} from
+    * a `.pt` with reference-layout members `network_<i>` (and
+      `optimizer_<i>`): the port's snapshot or the reference's;
+    * an `.npz` from the JAX package's `save_pytree_npz`: a stacked
+      `pixel_ensemble` tree, or members `network_<i>`."""
+    path = Path(path)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax snapshot of the JAX package); the "
+            "port loads .pt snapshots and save_pytree_npz .npz files, see ROADMAP.md"
+        )
+    if path.suffix == ".npz":
+        with np.load(str(path)) as data:
+            tree = unflatten_npz(data)
+        variables = tree.get("pixel_ensemble")
+        if variables is None:
+            members = [tree[k] for k in _member_keys(tree, "network")]
+            if not members:
+                raise KeyError(
+                    f"{path}: no 'pixel_ensemble' or 'network_<i>'; found {sorted(tree)}")
+            variables = _stack_trees(members)
+        return {"ensemble": pixel_ensemble_params_from_jax(variables)}
+    from synthesis_in_style_tpu_torch.models.pixel_classifier import stack_member_state_dicts
+
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    names = _member_keys(ckpt, "network")
+    if not names:
+        raise KeyError(f"{path}: no 'network_<i>' members; found {sorted(ckpt)}")
+    out: Dict[str, Any] = {"ensemble": stack_member_state_dicts([ckpt[k] for k in names])}
+    optimizers = [ckpt[k] for k in _member_keys(ckpt, "optimizer")]
+    if optimizers:
+        out["optimizers"] = optimizers
+    if "iteration" in ckpt:
+        out["iteration"] = int(ckpt["iteration"])
+    return out
+
+
+def _stack_trees(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def save_pixel_ensemble_snapshot(path: Union[str, Path], members: list, optimizers: list,
+                                 iteration: int) -> None:
+    """Write an ensemble snapshot in the reference layout: `network_<i>`
+    (reference-layout member state dicts), `optimizer_<i>` (each member's
+    torch Adam state) and `iteration`, through a temporary file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    snap: Dict[str, Any] = {f"network_{i}": m for i, m in enumerate(members)}
+    snap.update({f"optimizer_{i}": o for i, o in enumerate(optimizers)})
+    snap["iteration"] = int(iteration)
+    torch.save(snap, tmp)
+    os.replace(tmp, path)

@@ -85,11 +85,23 @@ SWAGAN_EMANET_MODULES = (
     "synthesis_in_style_tpu_torch.updaters.stylegan2_updater",
 )
 
+# the DatasetGAN branch's modules
+DATASET_GAN_MODULES = (
+    "synthesis_in_style_tpu_torch.models.pixel_classifier",
+    "synthesis_in_style_tpu_torch.evaluation.dataset_gan_evaluator",
+    "synthesis_in_style_tpu_torch.segmentation.dataset_gan_segmenter",
+    "synthesis_in_style_tpu_torch.data.dataset_gan_dataset",
+    "synthesis_in_style_tpu_torch.updaters.dataset_gan_updater",
+    "synthesis_in_style_tpu_torch.training_builder.pixel_ensemble_builder",
+    "synthesis_in_style_tpu_torch.visualization.dataset_gan_plotter",
+    "synthesis_in_style_tpu_torch.cli.create_dataset_for_activation_classification",
+)
+
 _IMPORT_LINE = re.compile(r"^\s*(?:import|from)\s+(cv2|jax|synthesis_in_style_tpu)(?:\s|\.|$)")
 
 
 @pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES + CAPSTONE_MODULES
-                         + SWAGAN_EMANET_MODULES)
+                         + SWAGAN_EMANET_MODULES + DATASET_GAN_MODULES)
 def test_host_route_modules_import_no_cv2_and_no_jax(module):
     """No import line of the module names cv2, jax or the JAX package, and it
     imports where both are blocked."""

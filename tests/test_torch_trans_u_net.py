@@ -512,5 +512,8 @@ def test_builder_builds_the_configured_network(shrunk_registry):
     from synthesis_in_style_tpu_torch.training_builder import EMANetTrainBuilder
 
     assert get_train_builder_class({"network": "EMANet"}) is EMANetTrainBuilder
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_train_builder_class({"network": "PixelEnsemble"})
+    from synthesis_in_style_tpu_torch.training_builder import PixelEnsembleTrainBuilder
+
+    assert get_train_builder_class({"network": "PixelEnsemble"}) is PixelEnsembleTrainBuilder
+    with pytest.raises(NotImplementedError, match="unknown network"):
+        get_train_builder_class({"network": "UNet"})
