@@ -217,8 +217,8 @@
    page profiled).
 14. The DatasetGAN branch, after step 13, on step 8's StyleGAN2 snapshot
    (256px, F = 5888 features a pixel): `create_dataset_for_activation_
-   classification -n 10 -b 10 --save-latents --save-activations -ge` (8
-   train, 2 test images; images/s and the tensors.npz write's seconds),
+   classification -n 5 -b 5 --save-latents --save-activations -ge` (4
+   train, 1 test image; images/s and the tensors.npz write's seconds),
    seeded rectangles of the class colours as hand labels; `train` on
    configs/dataset_creation/dataset_gan_wpi_stylegan2.yaml with the keys
    it lacks filled in (num_classes, tensor_path, checkpoint; as shipped it
@@ -240,9 +240,45 @@
    and dataset paths run with launch counts from 0 (the bias-act forward
    and the blur tail must run on each), and the two kernels are held
    against their plain versions at every (shape, dtype) each path launched.
-   Steps 5, 7 to 10, the GAN legs of 11, the training and pages of 12
-   and the paths of 13 and 14 run with PyTorch's defaults (TF32 cuDNN
-   convolutions, float32 matmuls).
+15. The autoencoder and GAN-inversion branch, after step 11, on step 8's
+   StyleGAN2 snapshot and its 64 pages (thresholded at 128 into the
+   binary content images): a w+ autoencoder (seeded WPlusEncoder, the
+   snapshot's g_ema as decoder) written with save_autoencoder_snapshot.
+   With TF32 off, each gate in three runs on the same inputs, float32 on
+   the card and on the CPU and float64 on the card (the fused ops' plain
+   versions, `_float64_on_card`), every gradient tensor on the card no
+   further from float64 than twice the CPU's plus 1e-3 of the step's
+   largest gradient, capped at 5e-2 of the tensor's own and floored at
+   1e-6 of the step's (`_grad_errors`: the encoder's first convolutions
+   feed train-mode BatchNorm, where float32 loses ~1e-2 of max|ref| on
+   either device, and ties break either way): one
+   autoencoder step (MSE + LPIPS, batch 2; losses card vs CPU within
+   1e-4, the decoder bitwise unchanged); one adversarial iteration (D,
+   R1, G) at batch 1 (D's LeakyReLU tie flips against float64 counted,
+   and the card's iteration repeated as it was and with cuDNN's
+   deterministic algorithms, not gated); the
+   first 3 steps of each projection stage at batch 1 on the g_ema with
+   seeded non-zero noise weights; and the 256px StyleGAN1 generator and
+   discriminator forwards (batch 2, within 1e-3 of max|ref|). Then, with
+   PyTorch's defaults: autoencoder training (AutoencoderUpdater under the
+   Trainer, denoising pairs, batch 8, 2 warm-up then 16 iterations with
+   launch counts from 0: exactly 7 bias-act forwards, 6 blur tails and 13
+   bias-act backwards an iteration; the step alone and profiled; peak
+   reserved memory; the decoder unchanged); `train_adversarial_generator`
+   (a 2-iteration first run that writes the snapshot, probe grid and log,
+   then 16 iterations at batch 8 with launch counts from 0; D + G alone
+   and profiled; peak memory); the same CLI with stylegan_variant 1 for 4
+   iterations at batch 4 (no port kernel may run); run_image_reconstruction
+   on 4 images at 100 + 100 steps (ms a step per stage, both losses
+   falling, exactly a decode and its backward a step); analyze_latent_code
+   on 32 images (the embedding's images/s, its cache and blueprints);
+   `create_semantic_segmentation -i` at -n 32 -b 8 -c 6 8 (a decode a
+   batch, the discovery artifacts). The bias-act pair and the blur tail
+   are held against their plain versions at every (shape, dtype) the
+   training, adversarial and projection paths launched.
+   Steps 5, 7 to 10, the GAN legs of 11, the training and pages of 12,
+   the paths of 13 and 14 and the rates of 15 run with PyTorch's defaults
+   (TF32 cuDNN convolutions, float32 matmuls).
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
@@ -323,6 +359,16 @@ DATASET_GAN_SWAGAN (4, 4), DATASET_GAN_SYNTHESIS (4, 2), NUM_IMAGES 4 and
 stand-in counters (a `launches` count and a `shapes` Counter) that
 wrappers of `ops.fused_act.fused_leaky_relu_plain` and
 `models.stylegan2.blur_demod_noise_bias_act` increment (~15 s).
+The autoencoder phase rehearses with DEVICE = "cpu": `autoencoder_phase(root,
+snapshot, pages, fns)` on a seeded 32px g_ema snapshot (`{"g_ema": state
+dict}` in `<run>/checkpoints/` beside `<run>/config/config.json`; latent_size
+32, n_mlp 2, channel_multiplier 1), pages from `write_training_pages` with
+TRAIN_PAGES 8, AE_STEP_BATCH 1, AE_RATE, ADV_RATE and ADV_V1 (2, 2),
+PROJECTION (1, 30, 30), ANALYZE_IMAGES 4, AE_DISCOVERY (4, 2, (2, 3)),
+set_tf32 stubbed and stand-in counters (a `launches` count and a `shapes`
+Counter) that wrappers of `ops.fused_act.fused_leaky_relu_plain`,
+`fused_leaky_relu_bwd_plain` and `ops.cuda.fused_blur.
+blur_demod_noise_bias_act_plain` increment (~2 min).
 So does the capstone phase: `capstone_phase(root, fns)` with DEVICE =
 "cpu", CAPSTONE_WIDTHS giving both legs a small generator (latent_size 32,
 n_mlp 2, batch_size 4, image_size 16 / 32), small CAPSTONE_*_CUTS and
@@ -3442,6 +3488,62 @@ def _tu_network(size: int, impl: str, num_classes: int = 3):
     return VisionTransformer(config, img_size=size, num_classes=num_classes)
 
 
+class _float64_on_card:
+    """While active, float64 tensors on the card take the fused ops' plain
+    versions (the kernels take float32 and bfloat16): the reference runs of
+    the card-vs-CPU gates (TransUNet, EMANet, the autoencoder branch)."""
+
+    def __enter__(self):
+        from synthesis_in_style_tpu_torch.ops import fused_act
+        from synthesis_in_style_tpu_torch.ops.cuda import fused_bias_act as fba
+        from synthesis_in_style_tpu_torch.ops.cuda import fused_blur as fb
+
+        self.saved = (fused_act._forward, fused_act._backward, fb.blur_demod_noise_bias_act_cuda)
+        fwd, bwd, blur = self.saved
+
+        def forward(x, bias, slope, scale):
+            if x.dtype == torch.float64:
+                return fba.fused_leaky_relu_plain(x, bias, slope, scale)
+            return fwd(x, bias, slope, scale)
+
+        def backward(y, g, slope, scale):
+            if g.dtype == torch.float64:
+                return fba.fused_leaky_relu_bwd_plain(y, g, slope, scale)
+            return bwd(y, g, slope, scale)
+
+        def blur_tail(x, *args, **kwargs):
+            if x.dtype == torch.float64:
+                return fb.blur_demod_noise_bias_act_plain(x, *args, **kwargs)
+            return blur(x, *args, **kwargs)
+
+        fused_act._forward, fused_act._backward = forward, backward
+        fb.blur_demod_noise_bias_act_cuda = blur_tail
+        return self
+
+    def __exit__(self, *exc):
+        from synthesis_in_style_tpu_torch.ops import fused_act
+        from synthesis_in_style_tpu_torch.ops.cuda import fused_blur as fb
+
+        fused_act._forward, fused_act._backward, fb.blur_demod_noise_bias_act_cuda = self.saved
+        return False
+
+
+# the three runs of a card-vs-CPU gate: (name, device, dtype)
+GATE_RUNS = (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+             ("float64", "cuda", torch.float64))
+
+
+def _gate_runs():
+    """GATE_RUNS on DEVICE (a CPU rehearsal runs them all on the CPU), the
+    float64 one inside _float64_on_card."""
+    import contextlib
+
+    for name, device, dtype in GATE_RUNS:
+        device = device if DEVICE == "cuda" else "cpu"
+        with (_float64_on_card() if dtype == torch.float64 else contextlib.nullcontext()):
+            yield name, device, dtype
+
+
 def _tu_pass(net, x, labels, device, dtype, impl) -> tuple:
     """(eval logits, train-mode 0.5 * CE + 0.5 * Dice loss, its gradients)
     of a copy of `net` on `device` in `dtype` with attention `impl`, all
@@ -3491,9 +3593,8 @@ def check_transunet_card_vs_cpu() -> dict:
     runs, seconds = {}, {}
     set_tf32(False)
     try:
-        for name, device, dtype, impl in (("card", "cuda", torch.float32, "flash"),
-                                          ("cpu", "cpu", torch.float32, "flash"),
-                                          ("card_float64", "cuda", torch.float64, "xla")):
+        for name, device, dtype in _gate_runs():
+            impl = "xla" if dtype == torch.float64 else "flash"
             launches = flash_attention_fwd_cuda.launches
             t0 = time.perf_counter()
             runs[name] = _tu_pass(net, x, labels, device, dtype, impl)
@@ -3504,7 +3605,7 @@ def check_transunet_card_vs_cpu() -> dict:
     finally:
         set_tf32(True)
         torch.backends.cuda.matmul.allow_tf32 = False
-    ref = runs["card_float64"]
+    ref = runs["float64"]
     out = {"size": TU_CHECK_SIZE, "batch": TU_CHECK_BATCH, "seconds": seconds,
            "loss": {k: v[1] for k, v in runs.items()}, "parameters": len(ref[2])}
     for name in ("card", "cpu"):
@@ -3974,12 +4075,16 @@ def write_emanet_config(root: Path, cuts: dict) -> Path:
 
 
 class _GradRecorder:
-    """Stands in for the segmenter's optimizer: keeps the gradients, moves
-    nothing."""
+    """Stands in for an optimizer: keeps the gradients by parameter name, in
+    float64 on the CPU, and moves nothing. `named` is a network or an
+    iterable of (name, parameter)."""
 
-    def __init__(self, network):
-        self.params = list(network.parameters())
-        self.names = [n for n, _ in network.named_parameters()]
+    def __init__(self, named):
+        if isinstance(named, torch.nn.Module):
+            named = named.named_parameters()
+        named = list(named)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.grads = {}
 
     def step(self, grads):
@@ -4006,8 +4111,7 @@ def check_emanet_card_vs_cpu() -> dict:
     runs = {}
     set_tf32(False)
     try:
-        for name, device, dtype in (("card", DEVICE, torch.float32), ("cpu", "cpu", torch.float32),
-                                    ("float64", DEVICE, torch.float64)):
+        for name, device, dtype in _gate_runs():
             net = copy.deepcopy(base).to(device=device, dtype=dtype)
             with torch.no_grad():
                 logits = net.eval()(x.to(device, dtype)).double().cpu()
@@ -4205,7 +4309,9 @@ DATASET_GAN_SWAGAN_YAML = REPO_ROOT / "configs" / "dataset_creation" / \
     "dataset_gan_wpi_swagan.yaml"
 DATASET_GAN_CREATION = REPO_ROOT / "configs" / "dataset_creation" / \
     "stylegan2_dataset_gan_bw_hwp_wpi.json"
-DATASET_GAN_IMAGES = (10, 10)  # the activation CLI's -n, -b: 8 train and 2 test images
+# the activation CLI's -n, -b: 4 train and 1 test image (10 until the script
+# grew: its zlib tensors.npz write, ~6 s an image, set the phase's time)
+DATASET_GAN_IMAGES = (5, 5)
 DATASET_GAN_ITERATIONS = (500, 250)  # the generate: true run, and its forced epoch
 DATASET_GAN_SHORT = 50  # iterations of the generate: false run
 DATASET_GAN_SWAGAN = (4, 20)  # SWAGAN: the activation CLI's -n (and -b), iterations
@@ -4743,6 +4849,844 @@ def dataset_gan_phase(root: Path, gan_snapshot: Path, swagan_snapshot: Path, fns
             "dataset": dataset, "swagan": swagan, "seconds": seconds}
 
 
+AE_STEP_BATCH = 2  # the autoencoder step card vs CPU
+AE_RATE = (16, 8)  # autoencoder training: iterations, batch
+ADV_RATE = (16, 8)  # the adversarial CLI: iterations, batch
+ADV_V1 = (4, 4)  # the adversarial CLI with stylegan_variant 1: iterations, batch
+PROJECTION = (4, 100, 100)  # run_image_reconstruction: images, w+ steps, noise steps
+PROJECTION_CHECK_STEPS = 3  # steps of each stage held card vs CPU
+ANALYZE_IMAGES = 32
+AE_DISCOVERY = (32, 8, (6, 8))  # -i discovery's -n, -b, -c
+AE_CUTS = {}  # a CPU rehearsal shrinks the autoencoder configs' sizes here
+# how far beyond twice the CPU a gradient tensor on the card may sit from
+# float64 (`_grad_errors`): AE_GRAD_TOL of the step's largest gradient, capped
+# at AE_GRAD_OWN of the tensor's own, floored at AE_GRAD_FLOOR of the step's
+AE_GRAD_TOL, AE_GRAD_OWN, AE_GRAD_FLOOR = 1e-3, 5e-2, 1e-6
+AUTOENCODER_LEGS = ("ae_training", "adversarial", "adversarial_v1", "projection",
+                    "analyze_latent_code", "discovery_images")
+
+
+def _grad_errors(what: str, runs: dict) -> dict:
+    """Gradients of one step from three runs on the same inputs: float32 on
+    the card ("card") and on the CPU ("cpu"), and float64 on the card
+    ("float64"). The float32 step itself can be ill-conditioned (an
+    encoder's first convolutions feed train-mode BatchNorm at 256px, where
+    the batch mean cancels most of their gradient: float32 sits up to ~4 %
+    of a tensor's largest gradient from float64 there, on either device),
+    and a ReLU or LeakyReLU tie (a pre-activation within float32 rounding
+    of 0) that one device breaks the other way moves a small tensor by a
+    few % of itself. So each tensor is held as the EMANet step is, the
+    card no further from float64 than twice the CPU, plus an allowance:
+    AE_GRAD_TOL of the step's largest gradient, but no more than
+    AE_GRAD_OWN of the tensor's own largest (a defect moves a tensor by a
+    good part of itself), and no less than AE_GRAD_FLOOR of the step's
+    largest (float32's resolution of the step: a bias in front of
+    train-mode BatchNorm has a gradient that is zero in exact arithmetic).
+    Every failing tensor is named; the summary gives each run's worst
+    tensor, the tightest tensor (card error over its bound) and every
+    tensor's row."""
+    ref = runs["float64"]
+    names = [n for n, g in ref.items() if g is not None]
+    missing = [n for n in ref if any((runs[k][n] is None) != (ref[n] is None)
+                                     for k in ("card", "cpu"))]
+    if missing:
+        raise AssertionError(f"{what}: gradient in some runs only for {missing[:4]}")
+    scale = max(ref[n].abs().max().item() for n in names)
+    if not scale > 0:
+        raise AssertionError(f"{what}: every gradient is zero")
+    rows, worst = {}, {"card": (0.0, ""), "cpu": (0.0, ""), "card_vs_cpu": (0.0, ""),
+                       "tightest": (0.0, "")}
+    for n in names:
+        exact = ref[n].cpu().double()
+        card, cpu = runs["card"][n].cpu().double(), runs["cpu"][n].cpu().double()
+        own = exact.abs().max().item()
+        row = {"max_ref": own, "card": (card - exact).abs().max().item(),
+               "cpu": (cpu - exact).abs().max().item(),
+               "card_vs_cpu": (card - cpu).abs().max().item()}
+        row["bound"] = 2 * row["cpu"] + max(AE_GRAD_FLOOR * scale,
+                                            min(AE_GRAD_TOL * scale, AE_GRAD_OWN * own))
+        rows[n] = row
+        for key in ("card", "cpu", "card_vs_cpu"):
+            worst[key] = max(worst[key], (row[key] / scale, n))
+        worst["tightest"] = max(worst["tightest"], (row["card"] / row["bound"], n))
+    failed = [n for n, row in rows.items() if not row["card"] <= row["bound"]]
+    if failed:
+        raise AssertionError(f"{what}: the card from float64 beyond its bound at {len(failed)} "
+                             "tensors: " + "; ".join(f"{n} {rows[n]}" for n in failed[:4]))
+    return {**{f"{k}_over_max_ref": v[0] for k, v in worst.items() if k != "tightest"},
+            **{f"{k}_worst_tensor": v[1] for k, v in worst.items()},
+            "tightest_share_of_bound": worst["tightest"][0], "max_ref": scale,
+            "tensors": rows}
+
+
+def _ae_config(gan_snapshot: Path) -> dict:
+    return {**_gan_config(gan_snapshot), **AE_CUTS}
+
+
+def write_binary_pages(pages: Path, root: Path) -> Path:
+    """The training pages thresholded at 128 (gray), as PNGs with their
+    binary.json: the adversarial CLI's binary content images."""
+    import numpy as np
+    from PIL import Image
+
+    from synthesis_in_style_tpu_torch.utils.png import write_png
+
+    out = root / "binary"
+    out.mkdir()
+    names = json.loads((pages / "train.json").read_text())
+    for name in names:
+        with Image.open(pages / name) as page:
+            gray = np.asarray(page.convert("L"))
+        write_png(out / name, np.repeat(np.where(gray < 128, 0, 255).astype(np.uint8)[..., None],
+                                        3, axis=2))
+    (out / "binary.json").write_text(json.dumps(names))
+    return out
+
+
+def write_autoencoder_snapshot(root: Path, gan_snapshot: Path, config: dict) -> Path:
+    """A w+ autoencoder of the config's widths: the encoder seeded, the
+    decoder the GAN snapshot's g_ema; `<run>/checkpoints/ae.pt` beside
+    `<run>/config/config.json`."""
+    from synthesis_in_style_tpu_torch.core.config import save_run_config
+    from synthesis_in_style_tpu_torch.models.factory import get_autoencoder
+    from synthesis_in_style_tpu_torch.utils.checkpoint import (
+        load_generator_state,
+        save_autoencoder_snapshot,
+    )
+
+    ae = get_autoencoder(config)
+    ae.encoder.init_weights(torch.Generator().manual_seed(SEED + 30))
+    ae.decoder.load_state_dict(load_generator_state(gan_snapshot), strict=True)
+    run = root / "ae_run"
+    save_run_config(run, config)
+    path = run / "checkpoints" / "ae.pt"
+    save_autoencoder_snapshot(path, ae)
+    return path
+
+
+def _lpips(device):
+    import warnings
+
+    from synthesis_in_style_tpu_torch.losses.lpips import LPIPS
+
+    with warnings.catch_warnings():  # no ImageNet backbone on the card machine
+        warnings.simplefilter("ignore")
+        return LPIPS("alex", seed=SEED).to(device)
+
+
+def _ae_batch(pages: Path, config: dict, batch: int) -> dict:
+    from synthesis_in_style_tpu_torch.data.autoencoder_dataset import DenoisingAutoencoderDataset
+
+    ds = DenoisingAutoencoderDataset(pages / "train.json", root=pages,
+                                     image_size=config["image_size"], seed=SEED)
+    items = [ds[i] for i in range(batch)]
+    return {k: torch.stack([it[k] for it in items]) for k in items[0]}
+
+
+def ae_step_card_vs_cpu(ae_path: Path, config: dict, pages: Path) -> dict:
+    """One reconstruction step (MSE + LPIPS) at batch AE_STEP_BATCH, TF32
+    off, float32 on the card and on the CPU and float64 on the card: the
+    losses card vs CPU within 1e-4, every encoder gradient held by
+    `_grad_errors`, and the decoder bitwise unchanged."""
+    from synthesis_in_style_tpu_torch.models.factory import load_autoencoder_or_generator
+    from synthesis_in_style_tpu_torch.updaters.autoencoder_updater import (
+        create_ae_train_state,
+        make_autoencoder_train_step,
+    )
+
+    batch = _ae_batch(pages, config, AE_STEP_BATCH)
+    grads, losses = {}, {}
+    for run, device, dtype in _gate_runs():
+        ae = load_autoencoder_or_generator(ae_path, config, device=device).to(dtype)
+        decoder_before = {k: v.clone() for k, v in ae.decoder.state_dict().items()}
+        state = create_ae_train_state(
+            ae, lambda params: _GradRecorder((n, p) for n, p in ae.named_parameters()
+                                             if not n.startswith("decoder.")))
+        step = make_autoencoder_train_step(lpips=_lpips(device).to(dtype))
+        out = step(state, {k: v.to(device, dtype) for k, v in batch.items()})
+        changed = [k for k, v in ae.decoder.state_dict().items()
+                   if not torch.equal(v, decoder_before[k])]
+        if changed:
+            raise AssertionError(f"autoencoder step ({run}): decoder changed at {changed[:4]}")
+        grads[run] = state.optimizer.grads
+        losses[run] = {k: float(v) for k, v in out.items()}
+    for key, ref in losses["cpu"].items():
+        if not abs(losses["card"][key] - ref) <= 1e-4 * max(1.0, abs(ref)):
+            raise AssertionError(f"autoencoder step {key}: card {losses['card'][key]} vs CPU {ref}")
+    row = {"losses": losses["card"], **_grad_errors("autoencoder step", grads)}
+    log(f"autoencoder step card vs CPU ({config['image_size']}px, batch {AE_STEP_BATCH}, "
+        f"float32, TF32 off): from float64 the card {row['card_over_max_ref']:.3g} (at "
+        f"{row['card_worst_tensor']}) and the CPU {row['cpu_over_max_ref']:.3g} (at "
+        f"{row['cpu_worst_tensor']}) of max|ref|, card vs CPU "
+        f"{row['card_vs_cpu_over_max_ref']:.3g}; tightest {row['tightest_worst_tensor']} at "
+        f"{row['tightest_share_of_bound']:.3g} of its bound; decoder bitwise unchanged; losses "
+        f"{row['losses']}")
+    return row
+
+
+class _LeakyReLUSigns:
+    """While active, records the branch that each of a network's
+    FusedLeakyReLU modules took (out > 0) at every call, on the CPU, in call
+    order: two runs of one step compare them to count tie flips (a
+    pre-activation within rounding of 0 that takes the other slope)."""
+
+    def __init__(self, network):
+        from synthesis_in_style_tpu_torch.models.stylegan2 import FusedLeakyReLU
+
+        self.modules = {n: m for n, m in network.named_modules()
+                        if isinstance(m, FusedLeakyReLU)}
+        self.signs = []
+
+    def __enter__(self):
+        self.handles = [m.register_forward_hook(
+            lambda mod, inputs, out, name=n: self.signs.append((name, (out > 0).cpu())))
+            for n, m in self.modules.items()]
+        return self
+
+    def __exit__(self, *exc):
+        for handle in self.handles:
+            handle.remove()
+        return False
+
+
+def _flips(signs: list, ref: list) -> dict:
+    """Elements whose LeakyReLU branch differs from ref's, by module."""
+    out = {}
+    for (name, a), (ref_name, b) in zip(signs, ref, strict=True):
+        if name != ref_name or a.shape != b.shape:
+            raise AssertionError(f"LeakyReLU calls differ: {name} {a.shape}, {ref_name} {b.shape}")
+        if (a != b).any():
+            out[name] = out.get(name, 0) + int((a != b).sum())
+    return out
+
+
+ADV_STEPS = ("d_step", "d_reg_step", "g_step")
+
+
+def adversarial_card_vs_cpu(config: dict, ae_path: Path, pages: Path, binary: Path) -> dict:
+    """One adversarial iteration (D, R1, G) at batch 1, float32, TF32 off,
+    the networks as the CLI builds them from the autoencoder snapshot: each
+    step's gradients held by `_grad_errors`, the metrics card vs CPU within
+    1e-3. D's LeakyReLU branches are recorded in every run and their tie
+    flips against float64 counted; the card's iteration runs twice more,
+    as it was and with cuDNN's deterministic algorithms, to show how far
+    its reading moves between runs (neither is gated)."""
+    import copy
+
+    from synthesis_in_style_tpu_torch.cli import train_adversarial_generator as adv
+    from synthesis_in_style_tpu_torch.data.json_dataset import normalize_to_tensor, default_loader
+    from synthesis_in_style_tpu_torch.losses.perceptual import PerceptualAndStyleLoss
+    from synthesis_in_style_tpu_torch.models.factory import load_autoencoder_state
+    from synthesis_in_style_tpu_torch.updaters.adversarial_updater import (
+        AdversarialTrainState,
+        make_adversarial_steps,
+    )
+    from synthesis_in_style_tpu_torch.utils.checkpoint import load_autoencoder_snapshot
+
+    networks = adv.build_networks(config)
+    adv.init_networks(networks, SEED)
+    generation, reconstruction, disc = networks
+    snap = load_autoencoder_snapshot(ae_path)
+    load_autoencoder_state(reconstruction, snap["autoencoder"])
+    load_autoencoder_state(generation.decoder, snap["g_ema"], "style")
+    name = json.loads((pages / "train.json").read_text())[0]
+    size = config["image_size"]
+    style = normalize_to_tensor(default_loader(pages / name), size)[None]
+    binary_img = normalize_to_tensor(default_loader(binary / name), size)[None]
+
+    def iteration(device, dtype):
+        g_net = copy.deepcopy(generation).to(device, dtype).train()
+        d_net = copy.deepcopy(disc).to(device, dtype)
+        state = AdversarialTrainState(
+            g_net, d_net,
+            copy.deepcopy(reconstruction).to(device, dtype).eval().requires_grad_(False),
+            _GradRecorder(g_net), _GradRecorder(d_net))
+        steps = make_adversarial_steps(
+            PerceptualAndStyleLoss(use_style_loss=False).to(device, dtype))
+        b, s = binary_img.to(device, dtype), style.to(device, dtype)
+        out, grads, signs = {}, {}, {}
+        for step, call, prefix in (("d_step", lambda: steps["d_step"](state, b, s), ""),
+                                   ("d_reg_step", lambda: steps["d_reg_step"](state, s), ""),
+                                   ("g_step", lambda: steps["g_step"](state, b, s), "g_")):
+            with _LeakyReLUSigns(d_net) as rec:
+                out.update({prefix + k: v for k, v in call().items()})
+            optimizer = state.g_optimizer if step == "g_step" else state.d_optimizer
+            grads[step], signs[step] = optimizer.grads, rec.signs
+        return grads, {k: float(v) for k, v in out.items()}, signs
+
+    grads, metrics, signs = {}, {}, {}
+    for run, device, dtype in _gate_runs():
+        grads[run], metrics[run], signs[run] = iteration(device, dtype)
+    device = DEVICE
+    grads["card_repeat"], _, signs["card_repeat"] = iteration(device, torch.float32)
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads["card_deterministic"], _, signs["card_deterministic"] = iteration(
+            device, torch.float32)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    ref = grads["float64"]
+    diagnosis = {}
+    for step in ADV_STEPS:
+        names = [n for n, g in ref[step].items() if g is not None]
+        scale = max(ref[step][n].abs().max().item() for n in names)
+        diagnosis[step] = {run: {
+            "over_max_ref": max(((grads[run][step][n] - ref[step][n]).abs().max().item() / scale,
+                                 n) for n in names),
+            "flips": _flips(signs[run][step], signs["float64"][step])}
+            for run in ("card", "cpu", "card_repeat", "card_deterministic")}
+        diagnosis[step]["repeat_bitwise_equal"] = all(
+            torch.equal(grads["card_repeat"][step][n], grads["card"][step][n]) for n in names)
+    log(f"adversarial iteration ({size}px, batch 1, float32, TF32 off), each run's worst "
+        "gradient from float64 (of max|ref|) and D's LeakyReLU tie flips against float64: " +
+        "; ".join(f"{step}: " + ", ".join(
+            f"{run} {d[run]['over_max_ref'][0]:.3g} at {d[run]['over_max_ref'][1]} flips "
+            f"{d[run]['flips']}" for run in ("card", "cpu", "card_repeat",
+                                              "card_deterministic"))
+            + f", repeat bitwise equal {d['repeat_bitwise_equal']}"
+            for step, d in diagnosis.items()))
+    rows = {step: _grad_errors(f"adversarial {step}",
+                               {k: grads[k][step] for k in ("card", "cpu", "float64")})
+            for step in ADV_STEPS}
+    for key, value in metrics["cpu"].items():
+        if not abs(metrics["card"][key] - value) <= 1e-3 * max(1.0, abs(value)):
+            raise AssertionError(f"adversarial {key}: card {metrics['card'][key]} vs CPU {value}")
+    log(f"adversarial iteration card vs CPU ({size}px, batch 1, float32, TF32 off), from "
+        "float64: " + "; ".join(
+            f"{k} card {v['card_over_max_ref']:.3g} / CPU {v['cpu_over_max_ref']:.3g} of max|ref| "
+            f"(card vs CPU {v['card_vs_cpu_over_max_ref']:.3g}; tightest "
+            f"{v['tightest_worst_tensor']} at {v['tightest_share_of_bound']:.3g} of its bound)"
+            for k, v in rows.items())
+        + f"; metrics {metrics['card']}")
+    return {"steps": rows, "metrics": metrics["card"], "diagnosis": diagnosis}
+
+
+def _seeded_noise_generator(gan_snapshot: Path, config: dict, device):
+    """The snapshot's g_ema with seeded non-zero noise weights (a fresh
+    init's are 0, which would leave projection's noise stage no gradient)."""
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+
+    gen = load_generator(gan_snapshot, config, device="cpu")
+    g = torch.Generator().manual_seed(SEED + 31)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("noise.weight"):
+                p.copy_(0.1 + 0.1 * torch.rand(p.shape, generator=g))
+    return gen.to(device).eval()
+
+
+def _start_latents(gen, batch: int, device):
+    from synthesis_in_style_tpu_torch.models.encoder import Latents
+
+    mean = gen.mean_latent(256, torch.Generator().manual_seed(SEED))  # z drawn on the CPU
+    latent = mean[:, None, :].expand(batch, gen.n_latent, -1).contiguous()
+    noise = tuple(n.expand(batch, -1, -1, -1).contiguous() for n in gen.noises.nhwc())
+    return Latents(latent=latent, noise=noise)
+
+
+def _target_images(pages: Path, config: dict, n: int, listing: str = "train.json"
+                   ) -> torch.Tensor:
+    from synthesis_in_style_tpu_torch.data.json_dataset import default_loader, normalize_to_tensor
+
+    names = json.loads((pages / listing).read_text())[:n]
+    return torch.stack([normalize_to_tensor(default_loader(pages / m), config["image_size"])
+                        for m in names])
+
+
+def projection_card_vs_cpu(gan_snapshot: Path, config: dict, pages: Path) -> dict:
+    """The first PROJECTION_CHECK_STEPS steps of each stage of
+    run_image_reconstruction's projection at batch 1 (w+ with LPIPS, then
+    the noise with MSE) on the card: at each step's starting point the loss
+    and the gradient of the optimized leaves card vs CPU (TF32 off), the
+    noise stage's gradient non-zero."""
+    from synthesis_in_style_tpu_torch import latent_projecting as lp
+
+    target = _target_images(pages, config, 1)
+    gens = {d: _seeded_noise_generator(gan_snapshot, config, d) for d in (DEVICE, "cpu")}
+    lpips = {d: _lpips(d) for d in (DEVICE, "cpu")}
+    latents = _start_latents(gens["cpu"], 1, "cpu")
+    rows = {}
+    for optimize, lr in (("latent", 0.1), ("noise", 5.0)):
+        loss_fn = {d: (lp.w_plus_loss({"l_percept": 1.0, "l_mse": 0.0}, lpips[d])
+                       if optimize == "latent" else lp.naive_noise_loss({"l_mse": 1.0}))
+                   for d in (DEVICE, "cpu")}
+        paths, final = lp.Projector(gens[DEVICE]).project(
+            _to(latents, DEVICE), target.to(DEVICE), loss_fn[DEVICE], PROJECTION_CHECK_STEPS, lr,
+            optimize=optimize, snapshot_every=1)
+        starts = [latents] + [_from_numpy(item) for item in paths.items[:-1]]
+        worst = []
+        for i, start in enumerate(starts):
+            out = {}
+            for run, device, dtype in _gate_runs():
+                lat = _to(start, device, dtype)
+                leaves = [lat.latent] if optimize == "latent" else list(lat.noise)
+                leaves = [x.detach().clone().requires_grad_(True) for x in leaves]
+                lat = (lat.replace(latent=leaves[0]) if optimize == "latent"
+                       else lat.replace(noise=tuple(leaves)))
+                gen = gens[device].to(dtype)
+                loss_fn = (lp.w_plus_loss({"l_percept": 1.0, "l_mse": 0.0},
+                                          lpips[device].to(dtype))
+                           if optimize == "latent" else lp.naive_noise_loss({"l_mse": 1.0}))
+                loss, _ = loss_fn(lp.Projector(gen).generate(lat), target.to(device, dtype))
+                out[run] = (loss.item(), {str(j): g for j, g in enumerate(
+                    torch.autograd.grad(loss, leaves))})
+                gens[device].float()
+                lpips[device].float()
+            if not abs(out["card"][0] - out["cpu"][0]) <= 1e-4 * max(1.0, abs(out["cpu"][0])):
+                raise AssertionError(f"projection {optimize} step {i}: loss card "
+                                     f"{out['card'][0]} vs CPU {out['cpu'][0]}")
+            worst.append(_grad_errors(f"projection {optimize} step {i}",
+                                      {k: v[1] for k, v in out.items()}))
+        rows[optimize] = {"steps": worst}
+        latents = _to(final, "cpu")
+    log("projection card vs CPU (batch 1, TF32 off, seeded noise weights), from float64: " +
+        "; ".join(f"{k}: card worst {max(s['card_over_max_ref'] for s in v['steps']):.3g}, CPU "
+                  f"{max(s['cpu_over_max_ref'] for s in v['steps']):.3g} of max|ref| over "
+                  f"{len(v['steps'])} steps (max|grad| {v['steps'][0]['max_ref']:.3g}; tightest "
+                  f"at {max(s['tightest_share_of_bound'] for s in v['steps']):.3g} of its bound)"
+                  for k, v in rows.items()))
+    return rows
+
+
+def _to(latents, device, dtype=torch.float32):
+    return latents.replace(latent=latents.latent.to(device, dtype),
+                           noise=tuple(n.to(device, dtype) for n in latents.noise))
+
+
+def _from_numpy(latents):
+    return latents.replace(latent=torch.from_numpy(latents.latent),
+                           noise=tuple(torch.from_numpy(n) for n in latents.noise))
+
+
+def _expected_launches(size: int, decodes: int, backwards: int) -> dict:
+    """Launches of `decodes` w+ decodes at `size` px and `backwards`
+    backwards through them. A decode runs the bias-act forward in conv1 and
+    in each resolution's second conv (7 at 256px) and a blur tail in each
+    upsampling conv (6); its backward runs the bias-act backward once per
+    bias-act forward and once per blur tail (13)."""
+    ups = int(math.log2(size)) - 2
+    return {"fused_bias_act": decodes * (ups + 1), "fused_blur": decodes * ups,
+            "fused_bias_act_bwd": backwards * (2 * ups + 1)}
+
+
+def _check_launches(path: str, launches: dict, want: dict) -> None:
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, want {want}")
+
+
+def ae_training_rate(ae_path: Path, config: dict, pages: Path, fns: dict) -> dict:
+    """AutoencoderUpdater under the Trainer (the JAX package's API; it has no
+    CLI): denoising pairs of the training pages, AE_RATE iterations at its
+    batch after 2 warm-up iterations, launch counts from 0 (exactly a
+    decode and its backward an iteration), the step alone on a batch on the
+    card (and profiled), peak reserved memory, the decoder unchanged."""
+    from synthesis_in_style_tpu_torch.core.trainer import Trainer
+    from synthesis_in_style_tpu_torch.data.autoencoder_dataset import DenoisingAutoencoderDataset
+    from synthesis_in_style_tpu_torch.data.loader import EpochStream, make_loader
+    from synthesis_in_style_tpu_torch.models.factory import load_autoencoder_or_generator
+    from synthesis_in_style_tpu_torch.updaters.autoencoder_updater import (
+        AutoencoderUpdater,
+        adam_optimizer,
+        create_ae_train_state,
+        make_autoencoder_train_step,
+    )
+
+    iterations, batch = AE_RATE
+    ds = DenoisingAutoencoderDataset(pages / "train.json", root=pages,
+                                     image_size=config["image_size"], seed=SEED)
+    stream = EpochStream(make_loader(ds, batch, shuffle=True, drop_last=True, num_workers=4,
+                                     seed=SEED, pin_memory=DEVICE == "cuda"))
+    ae = load_autoencoder_or_generator(ae_path, config, device=DEVICE)
+    decoder_before = {k: v.clone() for k, v in ae.decoder.state_dict().items()}
+    state = create_ae_train_state(ae, adam_optimizer(1e-4))
+    step = make_autoencoder_train_step(lpips=_lpips(DEVICE))
+    updater = AutoencoderUpdater(step, state, {"images": stream}, seed=SEED, device=DEVICE)
+    try:
+        for _ in range(2):
+            updater.update()
+        _sync()
+        _reset_peak()
+        _count_from_zero(fns)
+        trainer = Trainer(updater, (iterations + 2, "iteration"))
+        trainer.train()
+        _sync()
+        launches = _launches(fns)
+        shapes = {**_path_shapes(fns), "fused_bias_act_bwd": dict(fns["fused_bias_act_bwd"].shapes)}
+        peak = _peak_reserved_gb()
+        _check_launches("autoencoder training", launches,
+                        _expected_launches(config["image_size"], iterations, iterations))
+        fixed = {k: v.to(DEVICE) for k, v in next(stream).items()}
+    finally:
+        stream.close()
+    out = {"iterations": iterations, "batch": batch, "loop_seconds": trainer.seconds,
+           "iterations_per_s": iterations / trainer.seconds,
+           "images_per_s": iterations * batch / trainer.seconds, "launches": launches,
+           "peak_reserved_gb": peak, "shapes": shapes,
+           **_step_alone(lambda: step(state, fixed, updater.rng))}
+    changed = [k for k, v in ae.decoder.state_dict().items() if not torch.equal(v, decoder_before[k])]
+    if changed:
+        raise AssertionError(f"autoencoder training changed the decoder at {changed[:4]}")
+    log(f"autoencoder training ({config['image_size']}px, batch {batch}, float32, {iterations} iterations): "
+        f"{out['iterations_per_s']:.3f} iterations/s = {out['images_per_s']:.2f} images/s, the "
+        f"step alone {out['step_ms']:.2f} ms, peak reserved {peak:.2f} GB, decoder unchanged; "
+        f"launches {launches}")
+    return out
+
+
+def _step_alone(fn, steps: int = 5) -> dict:
+    """fn (one training step on a batch already on the card) timed over
+    `steps` calls after one, then once under torch.profiler."""
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    _sync()
+    out = {"step_ms": (time.perf_counter() - t0) / steps * 1e3}
+    if DEVICE == "cuda":
+        out["profile"] = profile_call(fn)
+    return out
+
+
+def run_adversarial_cli(config: dict, ae_path: Path, pages: Path, binary: Path, log_dir: Path,
+                        **overrides):
+    """`train_adversarial_generator` on DEVICE with the GAN config and
+    `overrides` (--overwrite-config: the config beside the checkpoint is
+    the GAN's)."""
+    from synthesis_in_style_tpu_torch.cli import train_adversarial_generator as cli
+
+    cfg = {**config, "lr": 1e-4, "beta1": 0.5, "num_workers": 4, **overrides}
+    path = log_dir.parent / f"{log_dir.name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(cfg))
+    args = cli.build_parser().parse_args(
+        [str(path), str(ae_path), "-o", str(pages / "train.json"), "-f",
+         str(binary / "binary.json"), "-d", DEVICE, "--overwrite-config"])
+    args.log_dir = str(log_dir)
+    _sync()
+    t0 = time.perf_counter()
+    trainer = cli.main(args)
+    _sync()
+    return trainer, time.perf_counter() - t0
+
+
+def adversarial_rates(config: dict, ae_path: Path, pages: Path, binary: Path, root: Path,
+                      fns: dict) -> dict:
+    """The adversarial CLI: a 2-iteration first run that writes the
+    snapshot, the probe grid and the log (checked), then ADV_RATE iterations
+    with launch counts from 0; the iteration alone on fixed batches on the
+    card (and profiled), peak reserved memory."""
+    import numpy as np
+    from PIL import Image
+
+    iterations, batch = ADV_RATE
+    first = root / "adv_first"
+    run_adversarial_cli(config, ae_path, pages, binary, first, batch_size=batch, max_iter=2,
+                        snapshot_save_iter=2, image_save_iter=2, log_iter=1)
+    snap = torch.load(first / "checkpoints" / "iter_00000002.pt", map_location="cpu",
+                      weights_only=True)
+    if not {"generator", "discriminator", "generator_optimizer"} <= set(snap):
+        raise AssertionError(f"adversarial snapshot holds {sorted(snap)}")
+    with Image.open(first / "images" / "iter_00000002.png") as png:
+        size = config["image_size"]
+        if png.size != (4 * size, min(4, batch) * size):
+            raise AssertionError(f"adversarial probe grid {png.size}")
+    log_lines = (first / "log.jsonl").read_text().splitlines()
+    if len(log_lines) < 2 or "discriminator/loss" not in json.loads(log_lines[-1]):
+        raise AssertionError(f"adversarial log: {log_lines[-1:]}")
+    _reset_peak()
+    _count_from_zero(fns)
+    trainer, wall = run_adversarial_cli(config, ae_path, pages, binary, root / "adv_run",
+                                        batch_size=batch, max_iter=iterations,
+                                        snapshot_save_iter=iterations,
+                                        image_save_iter=iterations, log_iter=8)
+    launches = _launches(fns)
+    shapes = {**_path_shapes(fns), "fused_bias_act_bwd": dict(fns["fused_bias_act_bwd"].shapes)}
+    peak = _peak_reserved_gb()
+    losses = [json.loads(line) for line in (root / "adv_run" / "log.jsonl").read_text()
+              .splitlines()]
+    if not all(np.isfinite(v) for rec in losses for k, v in rec.items()
+               if k.startswith(("generator/", "discriminator/"))):
+        raise AssertionError(f"adversarial losses not finite: {losses}")
+    updater = trainer.updater
+    binary_b = _target_images(binary, config, batch, "binary.json").to(DEVICE)
+    style_b = _target_images(pages, config, batch).to(DEVICE)
+
+    def iteration():
+        updater.steps["d_step"](updater.state, binary_b, style_b, updater.rng)
+        updater.steps["g_step"](updater.state, binary_b, style_b, updater.rng)
+
+    out = {"iterations": iterations, "batch": batch, "cli_seconds": wall,
+           "loop_seconds": trainer.seconds, "iterations_per_s": iterations / trainer.seconds,
+           "images_per_s": iterations * batch / trainer.seconds, "launches": launches,
+           "shapes": shapes, "peak_reserved_gb": peak, "last_log": losses[-1],
+           **_step_alone(iteration, steps=3)}
+    log(f"adversarial CLI ({config['image_size']}px, batch {batch}, float32, {iterations} iterations): "
+        f"{out['iterations_per_s']:.3f} iterations/s = {out['images_per_s']:.2f} images/s (loop "
+        f"{trainer.seconds:.3f} s, whole CLI {wall:.3f} s), D + G alone {out['step_ms']:.1f} ms, "
+        f"peak reserved {peak:.2f} GB; launches {launches}; first run wrote the snapshot, the "
+        f"probe grid and {len(log_lines)} log lines")
+    return out
+
+
+def projection_rate(gan_snapshot: Path, config: dict, pages: Path, fns: dict) -> dict:
+    """run_image_reconstruction on PROJECTION's images at its w+ and noise
+    steps (launch counts from 0: a decode and its backward a step), the
+    losses read each step through the abort conditions (which return False):
+    ms a step per stage, and both losses falling."""
+    from synthesis_in_style_tpu_torch import latent_projecting as lp
+
+    n, latent_steps, noise_steps = PROJECTION
+    gen = _seeded_noise_generator(gan_snapshot, config, DEVICE)
+    lpips = _lpips(DEVICE)
+    target = _target_images(pages, config, n).to(DEVICE)
+    latents = _start_latents(gen, n, DEVICE)
+    record = {"latent": [], "noise": []}
+
+    def watcher(stage):
+        def watch(loss, i):
+            record[stage].append((time.perf_counter(), loss))
+            return False
+        return watch
+
+    _reset_peak()
+    _count_from_zero(fns)
+    _sync()
+    t0 = time.perf_counter()
+    _, best = lp.run_image_reconstruction(
+        lp.Projector(gen), latents, target, lpips, latent_step=latent_steps,
+        noise_step=noise_steps, latent_abort_condition=watcher("latent"),
+        noise_abort_condition=watcher("noise"))
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = _launches(fns)
+    _check_launches("projection", launches,
+                    _expected_launches(config["image_size"], latent_steps + noise_steps,
+                                       latent_steps + noise_steps))
+    out = {"images": n, "steps": (latent_steps, noise_steps), "seconds": wall,
+           "launches": launches, "peak_reserved_gb": _peak_reserved_gb(),
+           "shapes": {**_path_shapes(fns),
+                      "fused_bias_act_bwd": dict(fns["fused_bias_act_bwd"].shapes)}}
+    for stage, rec in record.items():
+        times, losses = zip(*rec)
+        out[stage] = {"ms_per_step": (times[-1] - times[0]) / (len(times) - 1) * 1e3,
+                      "loss_first": losses[0], "loss_last": losses[-1]}
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"projection {stage} stage: loss {losses[0]} -> {losses[-1]}")
+    log(f"run_image_reconstruction ({n} images, {latent_steps} + {noise_steps} steps): "
+        + "; ".join(f"{k} {v['ms_per_step']:.2f} ms a step, loss {v['loss_first']:.4g} -> "
+                    f"{v['loss_last']:.4g}" for k, v in out.items() if k in record)
+        + f"; whole {wall:.2f} s, peak reserved {out['peak_reserved_gb']:.2f} GB; launches "
+        f"{launches}")
+    return out
+
+
+def analyze_rate(ae_path: Path, pages: Path, root: Path, fns: dict) -> dict:
+    """analyze_latent_code on ANALYZE_IMAGES pages: the embedding's images/s
+    (launch counts from 0: the encoder runs no port kernel), the cache's
+    keys and both blueprints."""
+    import argparse
+
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+    from synthesis_in_style_tpu_torch.scripts import analyze_latent_code as alc
+
+    names = json.loads((pages / "train.json").read_text())[:ANALYZE_IMAGES]
+    dataset = pages / "analyze.json"
+    dataset.write_text(json.dumps(names))
+    save_dir = root / "latent_analysis"
+    args = argparse.Namespace(autoencoder_checkpoint=str(ae_path), dataset=str(dataset),
+                              save_dir=str(save_dir), original_config_path=None, force=True,
+                              batch_size=8, stats=False, check_reconstructed_cdf=False,
+                              device=DEVICE)
+    config = load_config_from_checkpoint(ae_path)
+    _count_from_zero(fns)
+    _sync()
+    t0 = time.perf_counter()
+    latents, noises = alc.embed_images(args, config)
+    _sync()
+    embed_s = time.perf_counter() - t0
+    launches = _launches(fns)
+    args.force = False
+    t0 = time.perf_counter()
+    blueprints = alc.main(args)
+    analysis_s = time.perf_counter() - t0
+    with np.load(save_dir / "embedded.npz") as cached:
+        keys = sorted(cached.files)
+    want_keys = sorted(["latents", "num_noise_layers"] + [f"noise_{i}" for i in range(len(noises))])
+    n_latent = int(math.log2(config["image_size"])) * 2 - 2
+    if keys != want_keys or latents.shape != (len(names), n_latent, config["latent_size"]):
+        raise AssertionError(f"embedded.npz {keys}, latents {latents.shape}")
+    if len(blueprints["noise"]) != n_latent - 1 or not (save_dir / "latents" / "latent_blueprint.json").exists():
+        raise AssertionError("analyze_latent_code: blueprints missing")
+    out = {"images": len(names), "embed_seconds": embed_s, "images_per_s": len(names) / embed_s,
+           "analysis_seconds": analysis_s, "launches": launches}
+    log(f"analyze_latent_code ({len(names)} images, -b 8): embedding {out['images_per_s']:.2f} "
+        f"images/s ({embed_s:.3f} s with the loader's start), histograms and blueprints "
+        f"{analysis_s:.2f} s; launches {launches}")
+    return out
+
+
+def discovery_with_images(ae_path: Path, pages: Path, fns: dict) -> dict:
+    """create_semantic_segmentation -i on the autoencoder snapshot
+    (AE_DISCOVERY), launch counts from 0 (a decode a batch), artifacts as
+    the discovery phase checks them; a generator-only checkpoint raises."""
+    from synthesis_in_style_tpu_torch.cli import create_semantic_segmentation as css
+
+    n, batch, ks = AE_DISCOVERY
+    argv = [str(ae_path), "-i", str(pages / "train.json"), "-n", str(n), "-b", str(batch),
+            "-c", *map(str, ks), "--destination", "semantic_segmentation_images", "-d", DEVICE]
+    _count_from_zero(fns)
+    _sync()
+    t0 = time.perf_counter()
+    report = css.main(css.build_parser().parse_args(argv))
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = _launches(fns)
+    batches = -(-n // batch)
+    sem = ae_path.parent.parent / "semantic_segmentation_images"
+    size = _gan_config(ae_path)["image_size"]
+    _check_launches("discovery -i", launches, _expected_launches(size, batches, 0))
+    layers = (int(math.log2(size)) - 2) * 2 + 2  # the constant input and every StyledConv
+    check_discovery_artifacts(sem, layers, size, sizes=AE_DISCOVERY)
+    out = {**report, "cli_s": wall, "launches": launches}
+    log(f"discovery -i (-n {n} -b {batch} -c {ks[0]} {ks[1]}): generation "
+        f"{report['generation_s']:.3f} s, fit {report['fit_s']:.3f} s, write "
+        f"{report['write_s']:.3f} s, whole CLI {wall:.3f} s; launches {launches}")
+    return out
+
+
+def stylegan1_card_vs_cpu(config: dict) -> dict:
+    """The 256px StyledGenerator (seeded, non-zero noise weights) and
+    ProgressiveDiscriminator at batch 2, float32, TF32 off: image,
+    activations and logits card vs CPU within 1e-3 of max|ref|."""
+    from synthesis_in_style_tpu_torch.models.stylegan1 import (
+        ProgressiveDiscriminator,
+        StyledGenerator,
+    )
+
+    size, latent = config["image_size"], config["latent_size"]
+    g = torch.Generator().manual_seed(SEED + 32)
+    gen = StyledGenerator(size, latent, config.get("n_mlp", 8)).init_weights(g)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if ".noise" in name:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    disc = ProgressiveDiscriminator(default_step=gen.step).init_weights(g)
+    z = torch.randn((2, latent), generator=g)
+    noise = [torch.randn((2,) + s[1:], generator=g) for s in gen.noise_shapes()]
+    out = {}
+    for device in (DEVICE, "cpu"):
+        gen_d, disc_d = gen.to(device), disc.to(device)
+        with torch.no_grad():
+            img, acts = gen_d([z.to(device)], noise=[n.to(device) for n in noise],
+                              return_intermediate_activations=True)
+            out[device] = {"image": img.cpu(), "logits": disc_d(img).cpu(),
+                           **{f"act_{k}": v.cpu() for k, v in acts.items()}}
+    errs = {}
+    for key, ref in out["cpu"].items():
+        err = (out[DEVICE][key] - ref).abs().max().item() / ref.abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"StyleGAN1 {key}: card vs CPU {err} of max|ref|")
+        errs[key] = err
+    log(f"StyleGAN1 {size}px generator and discriminator card vs CPU (batch 2, TF32 off): worst "
+        f"{max(errs.values()):.3g} of max|ref| ({max(errs, key=errs.get)})")
+    return {"max_err_over_max_ref": errs}
+
+
+def check_bias_act_bwd_shapes(path: str, shapes: dict) -> list:
+    """The bias-act backward at every (shape, dtype) the path launched: y
+    from the forward kernel, g random, against the plain version."""
+    from synthesis_in_style_tpu_torch.ops.cuda.fused_bias_act import (
+        fused_leaky_relu_bwd_cuda,
+        fused_leaky_relu_bwd_plain,
+        fused_leaky_relu_cuda,
+    )
+
+    if DEVICE != "cuda":
+        return []
+    tols = dict(BIAS_ACT_TOLERANCES)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    rows = []
+    for (shape, dtype), launches in shapes.items():
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        y = fused_leaky_relu_cuda(x, torch.randn(shape[-1], generator=g, device="cuda").to(dtype))
+        grad = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        got = fused_leaky_relu_bwd_cuda(y, grad).float()
+        ref = fused_leaky_relu_bwd_plain(y, grad).float()
+        err = (got - ref).abs().max().item()
+        if not err <= tols[dtype] * max(1.0, ref.abs().max().item()):
+            raise AssertionError(f"fused_bias_act_bwd on the {path} path {shape} {dtype}: {err}")
+        rows.append({"kernel": "fused_bias_act_bwd", "shape": list(shape),
+                     "dtype": str(dtype).split(".")[-1], "launches": launches,
+                     "max_abs_err": err})
+    log(f"{path}: the bias-act backward at {len(rows)} (shape, dtype)s against its plain "
+        f"version, worst error {max([r['max_abs_err'] for r in rows] or [0.0])}")
+    return rows
+
+
+def autoencoder_phase(root: Path, gan_snapshot: Path, pages: Path, fns: dict) -> dict:
+    """The autoencoder and GAN-inversion branch on the training phase's
+    256px snapshot and pages: step parity card vs CPU (TF32 off), then with
+    PyTorch's defaults the rates of autoencoder training, the adversarial
+    CLI, projection, analyze_latent_code and -i discovery with their launch
+    counts, StyleGAN1 card vs CPU and its adversarial CLI (no port kernel),
+    and each path's kernels at its shapes against their plain versions."""
+    marks = [time.perf_counter()]
+    config = _ae_config(gan_snapshot)
+    binary = write_binary_pages(pages, root)
+    ae_path = write_autoencoder_snapshot(root, gan_snapshot, config)
+    set_tf32(False)
+    parity = {"autoencoder_step": ae_step_card_vs_cpu(ae_path, config, pages),
+              "adversarial": adversarial_card_vs_cpu(config, ae_path, pages, binary),
+              "projection": projection_card_vs_cpu(gan_snapshot, config, pages),
+              "stylegan1": stylegan1_card_vs_cpu(config)}
+    marks.append(time.perf_counter())
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths = {"ae_training": ae_training_rate(ae_path, config, pages, fns)}
+    marks.append(time.perf_counter())
+    paths["adversarial"] = adversarial_rates(config, ae_path, pages, binary, root, fns)
+    marks.append(time.perf_counter())
+    iterations, batch = ADV_V1
+    _count_from_zero(fns)
+    trainer, wall = run_adversarial_cli(
+        {**config, "stylegan_variant": 1}, gan_snapshot, pages, binary, root / "adv_v1",
+        batch_size=batch, max_iter=iterations, snapshot_save_iter=iterations,
+        image_save_iter=iterations, log_iter=2)
+    paths["adversarial_v1"] = {"iterations": iterations, "batch": batch, "cli_seconds": wall,
+                               "iterations_per_s": iterations / trainer.seconds,
+                               "launches": _launches(fns)}
+    _check_launches("adversarial, stylegan_variant 1", paths["adversarial_v1"]["launches"],
+                    _expected_launches(config["image_size"], 0, 0))
+    log(f"adversarial CLI, stylegan_variant 1 ({iterations} iterations, batch {batch}): "
+        f"{paths['adversarial_v1']['iterations_per_s']:.3f} iterations/s (whole CLI "
+        f"{wall:.2f} s); launches {paths['adversarial_v1']['launches']}")
+    del trainer
+    marks.append(time.perf_counter())
+    paths["projection"] = projection_rate(gan_snapshot, config, pages, fns)
+    marks.append(time.perf_counter())
+    paths["analyze_latent_code"] = analyze_rate(ae_path, pages, root, fns)
+    paths["discovery_images"] = discovery_with_images(ae_path, pages, fns)
+    marks.append(time.perf_counter())
+    set_tf32(False)
+    for name in ("ae_training", "adversarial", "projection"):
+        shapes = paths[name].pop("shapes")
+        paths[name]["path_kernels"] = (
+            check_path_kernels(f"autoencoder_{name}", shapes)
+            + check_bias_act_bwd_shapes(f"autoencoder_{name}", shapes["fused_bias_act_bwd"]))
+    marks.append(time.perf_counter())
+    seconds = dict(zip(("parity", "ae_training", "adversarial", "adversarial_v1", "projection",
+                        "analyze_and_discovery", "path_kernels"),
+                       (b - a for a, b in zip(marks, marks[1:]))))
+    log("autoencoder phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) +
+        f"; whole phase {marks[-1] - marks[0]:.1f}")
+    return {"parity": parity, **paths, "seconds": seconds}
+
+
 def flash_only(smi: str, detail_path) -> int:
     """`--only flash`: what ptxas reported for the flash kernels, then
     check_flash_attention."""
@@ -4905,6 +5849,12 @@ def main() -> int:
         # GAN (warm-started), the five-leg chain
         capstone = capstone_phase(root, fns)
         phases.append(("capstone", time.perf_counter()))
+        # the autoencoder and GAN-inversion branch on the training path's
+        # snapshot and pages
+        autoencoder = autoencoder_phase(
+            root, gan_run / "checkpoints" / f"iter_{TRAIN_OVERRIDES['max_iter']:08d}.pt", pages,
+            fns)
+        phases.append(("autoencoder", time.perf_counter()))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     path_shapes = check_fused_bias_act_path_shapes(detail["fused_bias_act_path_shapes"],
@@ -4946,6 +5896,11 @@ def main() -> int:
             ("dataset_gan_training", dataset_gan["training"]["launches"],
              ("fused_bias_act", "fused_blur")),
             ("dataset_gan_dataset", dataset_gan["dataset"]["launches"],
+             ("fused_bias_act", "fused_blur")),
+            *((f"autoencoder_{leg}", autoencoder[leg]["launches"],
+               ("fused_bias_act", "fused_bias_act_bwd", "fused_blur"))
+              for leg in ("ae_training", "adversarial", "projection")),
+            ("autoencoder_discovery_images", autoencoder["discovery_images"]["launches"],
              ("fused_bias_act", "fused_blur"))):
         for name in needed:
             if launches[name] <= 0:
@@ -4975,6 +5930,10 @@ def main() -> int:
     log("the port's kernels in that iteration: " + "; ".join(
         f"{k} x{v['calls']} {v['device_s']:.6f} s" for k, v in prof["port_kernels"].items()))
 
+    for leg in ("ae_training", "adversarial", "projection"):  # the branch's path shapes
+        for row in autoencoder[leg]["path_kernels"]:
+            kernels[row["kernel"]]["max_abs_err"] = max(kernels[row["kernel"]]["max_abs_err"],
+                                                        row["max_abs_err"])
     page_cc = segmenter["page"]["cc"]
     kernels["segmented_cc"].update({"page_ms": page_cc["ms"], "page_plain_ms": page_cc["plain_ms"],
                                     "page_bound_ms": page_cc["bound_ms"]})
@@ -5019,7 +5978,9 @@ def main() -> int:
                    "emanet_training": swagan_emanet["emanet"]["launches"][name],
                    "emanet_page_inference": swagan_emanet["emanet"]["pages"]["launches"][name],
                    **{f"dataset_gan_{leg}": dataset_gan[leg]["launches"][name]
-                      for leg in ("activations", "training", "dataset")}}
+                      for leg in ("activations", "training", "dataset")},
+                   **{f"autoencoder_{leg}": autoencoder[leg]["launches"][name]
+                      for leg in AUTOENCODER_LEGS}}
         rows.append({"name": name, "route": "cuda",
                      "source": f"synthesis_in_style_tpu_torch/{src}",
                      "replaces": tpu,
@@ -5052,7 +6013,7 @@ def main() -> int:
              "host_route": host_route, "discovery": discovery,
              "training": training, "segmenter": segmenter, "serving": serving,
              "capstone": capstone, "transunet": transunet, "swagan_emanet": swagan_emanet,
-             "dataset_gan": dataset_gan},
+             "dataset_gan": dataset_gan, "autoencoder": autoencoder},
             indent=1, default=str))
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

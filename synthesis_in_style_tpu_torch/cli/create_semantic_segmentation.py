@@ -14,12 +14,16 @@ moves to `--device` (default cuda) once for the whole k range (about 12.3 GB
 of float32 for the 256px generator at `-n 100`). Each k is fitted on every
 layer and its files are written before the next k starts, as in the JAX CLI.
 
-Not ported yet: `-i/--images` (real images through an autoencoder's
-encoder) raises NotImplementedError (ROADMAP.md, Queue 1 item 8).
+`-i/--images <images.json>` clusters real images instead of sampled
+latents: an autoencoder checkpoint (`utils/checkpoint.save_autoencoder_snapshot`)
+encodes them in order (wrapping at the end), and its decoder renders them
+with activation capture and `randomize_noise=False` (the predicted noise,
+or the decoder's stored buffers without it). A generator-only checkpoint
+raises ValueError, as in the JAX CLI.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.create_semantic_segmentation \\
-      <checkpoint> -n 100 -b 10 -c 3 24
+      <checkpoint> -n 100 -b 10 -c 3 24 [-i images.json] [-d cuda|cpu]
 """
 
 from __future__ import annotations
@@ -28,14 +32,18 @@ import argparse
 import time
 from itertools import cycle
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from PIL import Image, ImageColor
 
 from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
-from synthesis_in_style_tpu_torch.models.factory import load_generator
+from synthesis_in_style_tpu_torch.models.autoencoder import is_wplus
+from synthesis_in_style_tpu_torch.models.factory import (
+    load_autoencoder_or_generator,
+    load_generator,
+)
 from synthesis_in_style_tpu_torch.segmentation.factor_catalog import FactorCatalog, save_catalogs
 from synthesis_in_style_tpu_torch.segmentation.kmeans import mean_spherical_inertia
 from synthesis_in_style_tpu_torch.utils.dataset_creation import (
@@ -61,6 +69,42 @@ def prepare_output_dir(args: argparse.Namespace) -> Path:
     output_dir = Path(args.checkpoint).parent.parent / args.destination
     output_dir.mkdir(exist_ok=True, parents=True)
     return output_dir
+
+
+def make_encode_generate_fn(ae) -> Callable[[torch.Tensor], Tuple[Dict[int, torch.Tensor],
+                                                                  torch.Tensor]]:
+    """Real-image batch (B, H, W, C) in [-1, 1] -> (activations {0..num_layers:
+    (B, H, W, C)}, uint8 images (B, H, W, 3)): the autoencoder's encoder,
+    then its decoder with activation capture and `randomize_noise=False`."""
+
+    @torch.no_grad()
+    def generate(batch: torch.Tensor):
+        latents = ae.encode(batch)
+        noise = list(latents.noise) if latents.noise is not None else None
+        image, acts = ae.decoder([latents.latent], input_is_latent=is_wplus(latents),
+                                 noise=noise, randomize_noise=False,
+                                 return_intermediate_activations=True)
+        image = torch.clamp(torch.round((image.float() + 1.0) * 127.5), 0, 255)
+        return acts, image.to(torch.uint8)
+
+    return generate
+
+
+def build_image_batch_stream(json_path, config: dict,
+                             device: Union[str, torch.device] = "cuda") -> Iterator[torch.Tensor]:
+    """Endless stream of (batch_size, H, W, C) image batches on `device`
+    from a JSON image list, in order, wrapping at the end."""
+    from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import GANImageDataset
+
+    json_path = Path(json_path)
+    dataset = GANImageDataset(json_path, root=json_path.parent, image_size=config["image_size"],
+                              num_channels=config.get("input_dim", 3))
+    batch_size = config["batch_size"]
+    index = 0
+    while True:
+        batch = [dataset[i % len(dataset)]["images"] for i in range(index, index + batch_size)]
+        index += batch_size
+        yield torch.stack(batch).to(device)
 
 
 def get_activations(
@@ -167,18 +211,23 @@ def main(args: argparse.Namespace, report: Optional[List[dict]] = None) -> dict:
     """Run discovery; returns its generation, move-to-device, fit and write
     seconds and the activations' bytes. With `report`, each fit's own
     numbers are appended to it (`find_and_render_clusters`)."""
-    if getattr(args, "images", None) is not None:
-        raise NotImplementedError(
-            "--images (real images through an autoencoder's encoder) is not ported to "
-            "synthesis_in_style_tpu_torch yet: it needs the autoencoder (ROADMAP.md, "
-            "Queue 1 item 8)")
     device = torch.device(args.device)
     output_dir = prepare_output_dir(args).resolve()
     config = load_config_from_checkpoint(args.checkpoint, args.original_config_path)
     config["batch_size"] = args.batch_size
-    gen = load_generator(args.checkpoint, config, device=device)
-    generate = make_generate_fn(gen)
-    latent_stream = build_latent_and_noise_generator(config, device=device)
+    if getattr(args, "images", None) is not None:
+        gen = load_autoencoder_or_generator(args.checkpoint, config, device=device)
+        if not hasattr(gen, "encoder"):
+            raise ValueError(
+                "--images requires an autoencoder checkpoint (one with an 'autoencoder' "
+                "entry); this checkpoint only holds a generator - drop --images to cluster "
+                "sampled latents")
+        generate = make_encode_generate_fn(gen)
+        latent_stream = build_image_batch_stream(args.images, config, device)
+    else:
+        gen = load_generator(args.checkpoint, config, device=device)
+        generate = make_generate_fn(gen)
+        latent_stream = build_latent_and_noise_generator(config, device=device)
 
     t0 = time.perf_counter()
     activations, generated_images = get_activations(args, generate, latent_stream)
@@ -223,7 +272,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-n", "--num-samples", default=100, type=int)
     parser.add_argument("-c", "--cluster-range", nargs=2, default=[3, 24], type=int)
     parser.add_argument("-i", "--images", default=None,
-                        help="not ported yet: raises NotImplementedError")
+                        help="JSON image list to embed as base images instead of sampling "
+                        "latents (only works with an autoencoder checkpoint)")
     parser.add_argument("-s", "--strip-activations-from", type=int, default=None)
     parser.add_argument("-d", "--device", default="cuda",
                         help="torch device to synthesize and fit on (default cuda)")

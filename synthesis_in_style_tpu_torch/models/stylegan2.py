@@ -307,6 +307,11 @@ class Generator(nn.Module):
             buf.copy_(torch.randn(buf.shape, generator=generator))
         return self
 
+    def noise_shapes(self) -> List[Tuple[int, int, int, int]]:
+        """Per-layer noise shapes, NHWC: (1, H, W, 1)."""
+        return [(1,) + tuple(buf.shape[2:]) + (1,)
+                for buf in (getattr(self.noises, f"noise_{i}") for i in range(self.noises.num))]
+
     def get_latent(self, z: torch.Tensor) -> torch.Tensor:
         """Map z -> w."""
         return self.style(z)

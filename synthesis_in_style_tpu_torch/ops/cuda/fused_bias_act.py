@@ -190,7 +190,10 @@ def fused_leaky_relu_bwd_cuda(
     )
     build.check(err, "sis_bias_act_bwd")
     fused_leaky_relu_bwd_cuda.launches += 1
+    fused_leaky_relu_bwd_cuda.shapes[tuple(g.shape), g.dtype] += 1
     return dx
 
 
 fused_leaky_relu_bwd_cuda.launches = 0
+# launches by (shape, dtype), counted with `launches`
+fused_leaky_relu_bwd_cuda.shapes = Counter()

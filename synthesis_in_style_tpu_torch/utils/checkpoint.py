@@ -38,12 +38,24 @@ state dicts (`--init-ckpt`); `vgg16_features_params_from_jax` and
 `load_pixel_ensemble_state` write and read ensemble snapshots in the
 reference layout (`network_<i>`, `optimizer_<i>`), and read the JAX
 package's `save_pytree_npz` ensembles.
+
+Autoencoders: `encoder_params_from_jax` carries a JAX encoder's parameters
+and BatchNorm statistics across (the statistics become buffers), and
+`autoencoder_params_from_jax` a whole JAX composition (its decoder through
+`generator_params_from_jax`, or `stylegan1_generator_params_from_jax` for a
+StyleGAN1 decoder). `save_autoencoder_snapshot` writes a `.pt` holding
+`autoencoder` (the composition's state dict) and `g_ema` (its decoder's),
+and `load_autoencoder_snapshot` reads it, or an `.npz` of the JAX
+package's `save_pytree_npz` with an `autoencoder` tree. The StyleGAN1
+networks and the LPIPS backbones (`alexnet_features_params_from_jax`,
+`squeezenet_features_params_from_jax`) come across the same way.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import re
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -721,3 +733,227 @@ def save_pixel_ensemble_snapshot(path: Union[str, Path], members: list, optimize
     snap["iteration"] = int(iteration)
     torch.save(snap, tmp)
     os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------------------
+# encoders and autoencoders
+
+# the JAX encoders' numbered submodules -> the port's ModuleLists
+_ENCODER_LISTS = {"resnet_blocks": "resnet_blocks", "intermediate_blocks": "intermediate_blocks",
+                  "to_latent": "to_latents", "intermediate_to_latent": "intermediate_to_latents",
+                  "to_noise": "to_noises", "intermediate_to_noise": "intermediate_to_noises"}
+
+
+def _encoder_key(name: str) -> str:
+    m = re.fullmatch(r"(.*)_(\d+)", name)
+    if m and m.group(1) in _ENCODER_LISTS:
+        return f"{_ENCODER_LISTS[m.group(1)]}.{m.group(2)}"
+    return name
+
+
+def _float32(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """float32 tensors, int64 counters kept (with their shape: 0-d stays 0-d)."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if v.dtype == np.int64
+                                         else np.float32)) for k, v in sd.items()}
+
+
+def encoder_params_from_jax(params: Dict[str, Any],
+                            batch_stats: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """A JAX encoder's params and batch_stats trees (numpy leaves) -> the
+    port encoder's state dict (models/encoder.py): conv kernels HWIO ->
+    OIHW, BatchNorm scale / bias -> weight / bias, its mean / var ->
+    running_mean / running_var buffers."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(p: Dict[str, Any], st: Dict[str, Any], prefix: str) -> None:
+        if "kernel" in p:
+            sd[f"{prefix}weight"] = _hwio_to_oihw(p["kernel"])
+            if "bias" in p:
+                sd[f"{prefix}bias"] = np.asarray(p["bias"])
+            return
+        if "scale" in p:
+            sd[f"{prefix}weight"] = np.asarray(p["scale"])
+            sd[f"{prefix}bias"] = np.asarray(p["bias"])
+            sd[f"{prefix}running_mean"] = np.asarray(st["mean"])
+            sd[f"{prefix}running_var"] = np.asarray(st["var"])
+            sd[f"{prefix}num_batches_tracked"] = np.zeros((), np.int64)
+            return
+        for name, sub in p.items():
+            walk(sub, (st or {}).get(name, {}), f"{prefix}{_encoder_key(name)}.")
+
+    walk(params, batch_stats or {}, "")
+    return _float32(sd)
+
+
+def autoencoder_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX autoencoder composition's variables ({"params", "batch_stats",
+    "noises"}, numpy leaves) -> the port composition's state dict: each
+    encoder (`encoder`, `latent_encoder`, `noise_encoder`) through
+    `encoder_params_from_jax`, the decoder through the generator
+    converters, each under its name."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        if name == "decoder":
+            if "generator" in sub:
+                dec = stylegan1_generator_params_from_jax({"params": sub})
+            else:
+                dec_vars = {"params": sub}
+                noises = variables.get("noises", {}).get("decoder")
+                if noises:
+                    dec_vars["noises"] = noises
+                dec = generator_params_from_jax(dec_vars)
+        else:
+            dec = encoder_params_from_jax(sub, stats.get(name, {}))
+        sd.update({f"{name}.{k}": v for k, v in dec.items()})
+    return sd
+
+
+AUTOENCODER_KEY = "autoencoder"
+
+
+def save_autoencoder_snapshot(path: Union[str, Path], autoencoder: torch.nn.Module,
+                              **extra: Any) -> None:
+    """Write `autoencoder` (the composition's state dict) and `g_ema` (its
+    decoder's), plus any `extra` entries (optimizer states, iteration), to a
+    `.pt`, through a temporary file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save({AUTOENCODER_KEY: autoencoder.state_dict(),
+                "g_ema": autoencoder.decoder.state_dict(), **extra}, tmp)
+    os.replace(tmp, path)
+
+
+def load_autoencoder_snapshot(path: Union[str, Path]) -> Optional[Dict[str, Any]]:
+    """{"autoencoder": state dict[, "g_ema": the decoder's state dict, other
+    entries]} from a `.pt` of `save_autoencoder_snapshot`, or from an `.npz`
+    of the JAX package's `save_pytree_npz` with an `autoencoder` variables
+    tree; None when the checkpoint holds no autoencoder (a generator)."""
+    path = Path(path)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax snapshot of the JAX package); the "
+            "port loads .pt snapshots and save_pytree_npz .npz files, see ROADMAP.md"
+        )
+    if path.suffix == ".npz":
+        with np.load(str(path)) as data:
+            tree = unflatten_npz(data)
+        if AUTOENCODER_KEY not in tree:
+            return None
+        state = autoencoder_params_from_jax(tree[AUTOENCODER_KEY])
+        out = {AUTOENCODER_KEY: state,
+               "g_ema": {k[len("decoder."):]: v for k, v in state.items()
+                         if k.startswith("decoder.")}}
+        return out
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    if not isinstance(ckpt.get(AUTOENCODER_KEY), dict):
+        return None
+    return ckpt
+
+
+# ---------------------------------------------------------------------------
+# StyleGAN1
+
+
+def _equal(prefix: str, p: Dict[str, Any], out: Dict[str, np.ndarray], kind: str) -> None:
+    """A JAX StyleGAN1 weight + bias -> the port's layout: `linear` (in, out)
+    -> (out, in); `conv` HWIO -> OIHW; `up` (FusedUpsample) HWIO -> (in,
+    out, kh, kw)."""
+    w = np.asarray(p["weight"])
+    out[f"{prefix}.weight"] = {"linear": lambda a: a.T,
+                               "conv": lambda a: a.transpose(3, 2, 0, 1),
+                               "up": lambda a: a.transpose(2, 3, 0, 1)}[kind](w)
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def stylegan1_generator_params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's StyledGenerator variables -> the port's
+    StyledGenerator state dict (models/stylegan1.py)."""
+    params = variables.get("params", variables)
+    sd: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if name.startswith("style_"):
+            _equal(f"style_layers.{name.rsplit('_', 1)[1]}", p, sd, "linear")
+    for name, block in params["generator"].items():
+        index = name.rsplit("_", 1)[1]
+        if name.startswith("to_rgb_"):
+            _equal(f"generator.to_rgb.{index}", block, sd, "conv")
+            continue
+        t = f"generator.progression.{index}"
+        if "input" in block:
+            sd[f"{t}.input"] = np.asarray(block["input"]).transpose(0, 3, 1, 2)
+        if "conv1_fused" in block:
+            _equal(f"{t}.conv1_fused", block["conv1_fused"], sd, "up")
+        if "conv1" in block:
+            _equal(f"{t}.conv1", block["conv1"], sd, "conv")
+        _equal(f"{t}.conv2", block["conv2"], sd, "conv")
+        for j in (1, 2):
+            sd[f"{t}.noise{j}.weight"] = np.asarray(
+                block[f"noise{j}"]["weight"]).transpose(0, 3, 1, 2)
+            _equal(f"{t}.adain{j}.style", block[f"adain{j}"]["style"], sd, "linear")
+    return _float32(sd)
+
+
+def stylegan1_discriminator_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ProgressiveDiscriminator params (the bare tree or
+    {"params": tree}) -> the port's state dict."""
+    params = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if name.startswith("from_rgb_"):
+            _equal(f"from_rgb.{name.rsplit('_', 1)[1]}", p, sd, "conv")
+        elif m := re.fullmatch(r"conv_(\d+)_(\d)", name):
+            _equal(f"blocks.{m.group(1)}.conv{m.group(2)}", p, sd, "conv")
+        elif name == "linear":
+            _equal("linear", p, sd, "linear")
+        else:
+            _equal(name, p, sd, "conv")
+    return _float32(sd)
+
+
+def load_stylegan1_generator_state(path: Union[str, Path], key: str = "g_ema"
+                                   ) -> Dict[str, torch.Tensor]:
+    """A StyledGenerator state dict from an `.npz` (JAX `save_pytree_npz` of
+    its variables, or of a snapshot with `g_ema`) or a `.pt` (the port's
+    state dict, bare or under `key` / `generator`)."""
+    path = Path(path)
+    if path.suffix == ".npz":
+        with np.load(str(path)) as data:
+            tree = unflatten_npz(data)
+        return stylegan1_generator_params_from_jax(tree.get(key, tree))
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    for name in (key, "generator"):
+        if isinstance(ckpt.get(name), dict):
+            return ckpt[name]
+    return ckpt
+
+
+# ---------------------------------------------------------------------------
+# LPIPS backbones
+
+
+def alexnet_features_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's AlexNetFeatures params (`conv_<i>`) -> the port's
+    AlexNetFeatures state dict (`convs.<i>.*`); the same layout as VGG16's."""
+    return vgg16_features_params_from_jax(params)
+
+
+def squeezenet_features_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's SqueezeNetFeatures params (`conv_0`, `fire_<i>`
+    with `squeeze`, `expand1x1`, `expand3x3`) -> the port's state dict."""
+    params = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(t: str, p: Dict[str, Any]) -> None:
+        sd[f"{t}.weight"] = _hwio_to_oihw(p["kernel"])
+        sd[f"{t}.bias"] = np.asarray(p["bias"])
+
+    conv("conv_0", params["conv_0"])
+    for name, fire in params.items():
+        if name.startswith("fire_"):
+            for sub in ("squeeze", "expand1x1", "expand3x3"):
+                conv(f"fires.{name.rsplit('_', 1)[1]}.{sub}", fire[sub])
+    return _float32(sd)

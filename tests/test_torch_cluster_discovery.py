@@ -165,7 +165,9 @@ def test_strip_activations_and_images_flag(tmp_path, monkeypatch):
     with np.load(run / "semantic_segmentation" / "cluster_labels" / "2.npz") as labels:
         assert labels.files == ["4", "5", "6", "7"]  # 16px and 32px stay
     assert len(fits) == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # -i needs an autoencoder checkpoint: a generator-only one raises as the
+    # JAX CLI does
+    with pytest.raises(ValueError, match="autoencoder checkpoint"):
         _run_port_cli(monkeypatch, [str(ckpt), "-n", "4", "-i", "images.json"])
 
 

@@ -89,8 +89,12 @@ def test_factory_builds_discriminator():
     assert isinstance(disc, Discriminator)
     assert isinstance(get_discriminator({"image_size": 16, "stylegan_variant": "swagan"}),
                       swagan.Discriminator)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_discriminator({"image_size": 16, "stylegan_variant": 1})
+    from synthesis_in_style_tpu_torch.models.stylegan1 import ProgressiveDiscriminator
+
+    v1 = get_discriminator({"image_size": 16, "stylegan_variant": 1})
+    assert isinstance(v1, ProgressiveDiscriminator) and v1.step == 2
+    with pytest.raises(NotImplementedError, match="not supported"):
+        get_discriminator({"image_size": 16, "stylegan_variant": 3})
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor any module of the JAX package, nor
-OpenCV: every module of synthesis_in_style_tpu_torch imports in a fresh
-interpreter where `import jax` and `import cv2` fail, and leaves no
-synthesis_in_style_tpu module loaded."""
+OpenCV or matplotlib: every module of synthesis_in_style_tpu_torch imports
+in a fresh interpreter where `import jax`, `import cv2` and `import
+matplotlib` fail, and leaves no synthesis_in_style_tpu module loaded."""
 
 import re
 import subprocess
@@ -14,6 +14,7 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["cv2"] = None  # the card machine has no OpenCV
+sys.modules["matplotlib"] = None  # nor matplotlib
 import synthesis_in_style_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
@@ -85,6 +86,23 @@ SWAGAN_EMANET_MODULES = (
     "synthesis_in_style_tpu_torch.updaters.stylegan2_updater",
 )
 
+# the autoencoder and GAN-inversion branch's modules, and StyleGAN1
+AUTOENCODER_MODULES = (
+    "synthesis_in_style_tpu_torch.models.encoder",
+    "synthesis_in_style_tpu_torch.models.autoencoder",
+    "synthesis_in_style_tpu_torch.models.stylegan1",
+    "synthesis_in_style_tpu_torch.losses.lpips",
+    "synthesis_in_style_tpu_torch.losses.lpips_rank",
+    "synthesis_in_style_tpu_torch.losses.perceptual",
+    "synthesis_in_style_tpu_torch.updaters.autoencoder_updater",
+    "synthesis_in_style_tpu_torch.updaters.adversarial_updater",
+    "synthesis_in_style_tpu_torch.data.autoencoder_dataset",
+    "synthesis_in_style_tpu_torch.cli.train_adversarial_generator",
+    "synthesis_in_style_tpu_torch.latent_projecting",
+    "synthesis_in_style_tpu_torch.scripts.analyze_latent_code",
+    "synthesis_in_style_tpu_torch.utils.plots",
+)
+
 # the DatasetGAN branch's modules
 DATASET_GAN_MODULES = (
     "synthesis_in_style_tpu_torch.models.pixel_classifier",
@@ -97,19 +115,24 @@ DATASET_GAN_MODULES = (
     "synthesis_in_style_tpu_torch.cli.create_dataset_for_activation_classification",
 )
 
-_IMPORT_LINE = re.compile(r"^\s*(?:import|from)\s+(cv2|jax|synthesis_in_style_tpu)(?:\s|\.|$)")
+_IMPORT_LINE = re.compile(
+    r"^\s*(?:import|from)\s+(cv2|jax|matplotlib|synthesis_in_style_tpu)(?:\s|\.|$)")
 
 
 @pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES + CAPSTONE_MODULES
-                         + SWAGAN_EMANET_MODULES + DATASET_GAN_MODULES)
+                         + SWAGAN_EMANET_MODULES + DATASET_GAN_MODULES
+                         + AUTOENCODER_MODULES)
 def test_host_route_modules_import_no_cv2_and_no_jax(module):
-    """No import line of the module names cv2, jax or the JAX package, and it
-    imports where both are blocked."""
+    """No import line of the module names cv2, jax, matplotlib or the JAX
+    package, and it imports where they are blocked."""
     root = Path(__file__).resolve().parents[1]
     source = root / (module.replace(".", "/") + ".py")
+    if not source.exists():  # a package
+        source = source.with_suffix("") / "__init__.py"
     bad = [line for line in source.read_text().splitlines() if _IMPORT_LINE.match(line)]
     assert not bad, bad
     script = ("import sys; sys.modules['jax'] = None; sys.modules['cv2'] = None\n"
+              "sys.modules['matplotlib'] = None\n"
               f"import {module}\n"
               "assert not [m for m in sys.modules if m.split('.')[0] == 'synthesis_in_style_tpu']")
     out = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,

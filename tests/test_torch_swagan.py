@@ -287,8 +287,11 @@ def test_factory_dispatches_on_the_variant():
     assert isinstance(gen, swagan.Generator) and gen.n_latent == 4
     assert isinstance(get_discriminator(config), swagan.Discriminator)
     assert type(get_generator(config, variant=2)) is stylegan2.Generator
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_generator(config, variant=1)
+    from synthesis_in_style_tpu_torch.models.stylegan1 import StyledGenerator
+
+    assert type(get_generator(config, variant=1)) is StyledGenerator
+    with pytest.raises(NotImplementedError, match="not supported"):
+        get_generator(config, variant="3")
 
 
 def _float32_run_inputs(tmp_path, **changes):
