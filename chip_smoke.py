@@ -1,6 +1,19 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--detail PATH] [--only flash]
+  python3 chip_smoke.py [--detail PATH] [--only PHASE [PHASE ...] | --only flash]
+
+Run with no arguments, the script runs every phase below in one process
+(steps 1-2 build and check the kernels, then the phases in PHASES order:
+kernels, training_iterations, discovery, dataset, training, segmenter,
+serving, transunet, swagan_emanet, dataset_gan, capstone, autoencoder,
+evaluation) and ends in {"ok": true, "device": {...}}. `--only PHASE ...`
+runs those phases and every phase whose outputs they need (each phase
+names them: dataset needs discovery; segmenter dataset; serving
+segmenter; transunet dataset and segmenter; swagan_emanet training and
+segmenter; dataset_gan training and swagan_emanet; autoencoder training;
+evaluation dataset, training, segmenter, capstone and autoencoder), each
+with its gates and its own launch checks, and ends in {"ok": true, "only":
+[the phases run]}, never the full run's last line.
 
 1. Builds the four hand-written kernel libraries from
    synthesis_in_style_tpu_torch/csrc (nvcc, one process per source, all
@@ -27,11 +40,13 @@
    of the full-width 256px G and D at batch 2, float32, on the card and on
    the CPU with the same draws, and holds the gradients of every parameter;
    it logs each step's worst tensor and, for R1, how far the card and the
-   CPU each sit from a float64 run on the CPU.
+   CPU each sit from a float64 run on the card (the fused ops' plain
+   versions).
 5. Cluster discovery on a randomly initialised 256px StyleGAN2 (seeded
    torch.Generator, the shipped stylegan_256px.yaml widths):
-   `create_semantic_segmentation -n 100 -b 10 -c 6 9` (k = 6, 7, 8, all 14
-   layers), once small to warm up, once measured with launch counts from 0
+   `create_semantic_segmentation -n 20 -b 10 -c 6 9` (k = 6, 7, 8, all 14
+   layers; the CLI's default -n 100 cut for time), once small to warm up,
+   once measured with launch counts from 0
    (the bias-act forward and the blur tail must run, CC must not), with its
    generation, per-(layer, k) fit (seconds, steps, inertia), render and
    write seconds and activation bytes; its artifacts checked (14 unit-norm
@@ -61,17 +76,17 @@
    per batch (synthesis, masks to the host, host half in process and in 2
    warm workers, PNG writing), and the host and device back halves on one
    batch of the path's own masks (<= 3 % of pixels apart). PNG pairs are
-   written over a thread per core (`utils/png.write_png_batch`); the device
-   route runs once more with one writer thread, and its per-batch stages
-   time both writers, for the comparison in one run.
+   written over a thread per core (`utils/png.write_png_batch`); the
+   device route's per-batch stages time that writer and the one-thread
+   writer, for the comparison in one run.
 8. Drives the training CLI (`train_stylegan_2`) on the shipped
    configs/stylegan/stylegan_256px.yaml (bfloat16, frozen noise on layers
    0-5, the shipped regularization) with batch 16, 8 iterations and a
-   snapshot at 8, over 64 synthetic 256px pages: once to warm up, once
+   snapshot at 8, over 64 synthetic 256px pages: once to warm up (2
+   iterations; iteration 0 runs R1 and the path length), once
    measured (launch counts set to 0 before, read after; finite losses, D and
    G moved, the snapshot's g_ema loads through the dataset path's
-   `load_generator` and renders), once with every step synchronized and
-   timed for the split by step kind; then one more iteration under
+   `load_generator` and renders); then one more iteration under
    torch.profiler (device busy share, kernels with the most device time).
    The fused bias-act forward is then held against its plain version at
    every (shape, dtype) the measured run launched, with its device time,
@@ -79,7 +94,7 @@
 9. Chains the segmenter path onto step 7's PNG pairs: the segmenter
    training CLI (`train`) on the shipped
    configs/segmenter/stylegan2_doc_ufcn_segmenter.yaml (DocUFCN 32/64/128/256,
-   256px, batch 8, bfloat16) for 16 iterations with one validation pass at
+   256px, batch 8, bfloat16) for 8 iterations with one validation pass at
    the end, once to warm up and once measured (launch counts set to 0
    before, read after); the loader alone (a pass that starts its workers,
    then one on the same workers, kept) and the training step alone (on a
@@ -100,7 +115,7 @@
 10. Whole-page serving on that snapshot and those pages (0.7 / 55):
    pages/s of the unfused path, the fused path one page a call (a CUDA
    graph per page tiling) and `segment_images` 4 pages a replay, each in
-   float32 and bfloat16 (48 pages a reading, after a first pass that
+   float32 and bfloat16 (2 x 16 pages a reading, after a first pass that
    captures the graphs), and one fused page under torch.profiler; with
    TF32 off, fused against unfused (confidences within 1e-5, class maps
    >= 99.9 %), each graph replay against the eager body on the same inputs
@@ -120,24 +135,24 @@
    counts from 0), whose confusion matrices must count no more than 1e-6
    of a page's pixels differently from the unfused CLI's (argmax
    near-ties: its class output skips the vote normalization, as the JAX
-   package's does); both CLI modes at 0.7 / 55 over 16 and 48 pages
+   package's does); both CLI modes at 0.7 / 55 over 8 and 16 pages
    (steady-state pages/s from the difference); and the phase's peak
    reserved memory.
 11. The capstone recipe's training legs at the recipe's widths, cut in
    iterations and sample counts only: `make_capstone_fixture --size 256
    --num-pages 64 --num-eval 8` (host); the 128px leg's loader alone over
    three epochs (8 workers kept); `train_stylegan_2
-   configs/stylegan/capstone_128px.yaml --val-images` cut to 40 iterations,
-   snapshots and FID every 20 on 64 samples, its first attempt interrupted
-   after the iteration-20 snapshot and a second one with `--resume-ckpt
-   latest` that must start at 20 and end with iter_00000040.pt; then
-   capstone_256px.yaml with `--init-ckpt` of that snapshot, cut to 16
-   iterations and FID every 8 on 64 samples, its copied / fresh counts held
+   configs/stylegan/capstone_128px.yaml --val-images` cut to 20 iterations,
+   snapshots and FID every 10 on 64 samples, its first attempt interrupted
+   after the iteration-10 snapshot and a second one with `--resume-ckpt
+   latest` that must start at 10 and end with iter_00000020.pt; then
+   capstone_256px.yaml with `--init-ckpt` of that snapshot, cut to 8
+   iterations and FID every 4 on 64 samples, its copied / fresh counts held
    against counts from the two snapshots' state dicts and one copied tensor
    of each network bit-equal to its 128px source; each GAN leg's launch
    counts from 0, its relative FID and seconds per evaluation, training
    images/s, and the alarm's fid_history; then `run_capstone_chain` on the
-   256px snapshot (--ks 4 6 -n 16 --num-pairs 64 --epochs 1 --batch-size 8
+   256px snapshot (--ks 4 6 -n 16 --num-pairs 32 --epochs 1 --batch-size 8
    --min-confidence 0.0 0.7 --min-contour-area 0 55
    --use-device-component-filter, --select-args '--class-mode side
    --left-threshold 0.5 --num-fg-layers 1'), each
@@ -167,18 +182,19 @@
    (flash) and on the CPU (plain), both against float64 on the card (eval
    logits within 1e-4; one step's gradients no further from float64 on the
    card than twice the CPU's); the training CLI on the shipped config with
-   `attention_impl: flash` over step 7's pairs (2-iteration warm-up, then 16
+   `attention_impl: flash` over step 7's pairs (2-iteration warm-up, then 8
    iterations and one validation pass with launch counts from 0: finite
    losses, weights moved, forward launches = 12 x forward passes, backward
    launches = 12 x iterations), then the same with the shipped config as it
-   is (xla, no flash launch), images/s of both; then
+   is (xla, no flash launch; no warm-up of its own: the flash runs warmed
+   the process's convolutions), images/s of both; then
    `analyze_image_segments --use-device-component-filter` with the flash
    snapshot over step 9's 2048x1536 pages at 0.7 / 55 (512px patches; flash
    launches = 12 x forward passes, CC launched) and the segmenter's pages/s;
    then fused page inference against unfused with TF32 off (within 1e-5;
    flash launches = (replays + 2 warm-ups) x launches a replay), pages/s
    fused in float32 and bfloat16, bfloat16 class maps >= 0.99 of float32's.
-   The training runs also time the step alone on a batch on the card (10
+   The training runs also time the step alone on a batch on the card (5
    steps, then one under torch.profiler), and then the same step in float32
    (the updater's compute_dtype unset: flash and xla; the flash run's 12
    forward and 12 backward launches a step counted from 0, none for xla;
@@ -192,11 +208,12 @@
    SWAGAN's five upsample outputs ((8..64, 512) and (128, 256)). After
    the TransUNet phase: `train_stylegan_2` on configs/stylegan/
    swagan_256px.yaml (bfloat16) cut to batch 16, 8 iterations and a
-   snapshot at 8 (a warm-up run, then measured with launch counts from 0:
+   snapshot at 8 (a 2-iteration warm-up run, then measured with launch
+   counts from 0:
    the bias-act forward and backward and the blur tail must run; one
    iteration under torch.profiler; the bias-act forward at every (shape,
    dtype) it launched); on that snapshot's g_ema, `create_semantic_
-   segmentation -n 32 -b 8 -c 6 9` over all 12 wavelet-space layers
+   segmentation -n 16 -b 8 -c 6 9` over all 12 wavelet-space layers
    (launch counts from 0), a label map for its k = 8 catalog, the dataset
    path at batch 2 card vs CPU (generator and activations within 1e-3, the
    device back half bit for bit) and the dataset CLI with configs/
@@ -208,7 +225,7 @@
    1e-4; gradients, BatchNorm statistics and the new µ no further from
    float64 on the card than twice the CPU's); `train` on configs/
    segmenter/swagan_ema_net_segmenter.yaml (256px, batch 8, bfloat16) over
-   the SWAGAN pairs (a 2-iteration warm-up, then 16 iterations and a
+   the SWAGAN pairs (a 2-iteration warm-up, then 8 iterations and a
    validation pass with launch counts from 0; the step alone, 10 steps
    and one profiled); and its snapshot on step 9's four 2048x1536 pages
    at 0.7 / 55 (the analyze CLI with launch counts from 0, CC must run;
@@ -217,7 +234,7 @@
    page profiled).
 14. The DatasetGAN branch, after step 13, on step 8's StyleGAN2 snapshot
    (256px, F = 5888 features a pixel): `create_dataset_for_activation_
-   classification -n 5 -b 5 --save-latents --save-activations -ge` (4
+   classification -n 3 -b 3 --save-latents --save-activations -ge` (2
    train, 1 test image; images/s and the tensors.npz write's seconds),
    seeded rectangles of the class colours as hand labels; `train` on
    configs/dataset_creation/dataset_gan_wpi_stylegan2.yaml with the keys
@@ -261,24 +278,62 @@
    seeded non-zero noise weights; and the 256px StyleGAN1 generator and
    discriminator forwards (batch 2, within 1e-3 of max|ref|). Then, with
    PyTorch's defaults: autoencoder training (AutoencoderUpdater under the
-   Trainer, denoising pairs, batch 8, 2 warm-up then 16 iterations with
+   Trainer, denoising pairs, batch 8, 2 warm-up then 8 iterations with
    launch counts from 0: exactly 7 bias-act forwards, 6 blur tails and 13
    bias-act backwards an iteration; the step alone and profiled; peak
    reserved memory; the decoder unchanged); `train_adversarial_generator`
    (a 2-iteration first run that writes the snapshot, probe grid and log,
-   then 16 iterations at batch 8 with launch counts from 0; D + G alone
-   and profiled; peak memory); the same CLI with stylegan_variant 1 for 4
+   then 8 iterations at batch 8 with launch counts from 0; D + G alone
+   and profiled; peak memory); the same CLI with stylegan_variant 1 for 2
    iterations at batch 4 (no port kernel may run); run_image_reconstruction
-   on 4 images at 100 + 100 steps (ms a step per stage, both losses
+   on 4 images at 50 + 50 steps (ms a step per stage, both losses
    falling, exactly a decode and its backward a step); analyze_latent_code
-   on 32 images (the embedding's images/s, its cache and blueprints);
-   `create_semantic_segmentation -i` at -n 32 -b 8 -c 6 8 (a decode a
+   on 16 images (the embedding's images/s, its cache and blueprints);
+   `create_semantic_segmentation -i` at -n 16 -b 8 -c 6 8 (a decode a
    batch, the discovery artifacts). The bias-act pair and the blur tail
    are held against their plain versions at every (shape, dtype) the
    training, adversarial and projection paths launched.
+16. Checkpoint evaluation and results analysis, after steps 11 and 15,
+   on their outputs. With TF32 off, card against CPU on the same weights,
+   images and draws (then, with PyTorch's defaults, the reconstruction
+   scoring's images/s over the val pages on the card at -b 8, 3 passes
+   after a warm one, no loader): `evaluate_checkpoints`' reconstruction
+   scores of
+   step 15's w+ autoencoder on 4 validation images, one a batch (each
+   image's PSNR within 1e-3 dB; the SSIM of the two reconstructions
+   computed in float64 within 1e-5, a w+ decode being ~1e-5 of max|ref|
+   from the CPU; the script's float32 SSIM within 3e-5: 1e-5 for the
+   decode plus each device's own float32 rounding of the metric, which
+   sits up to ~1.05e-5 from its float64 value on these flat pages, where
+   card and CPU read 1.01-1.03e-5 apart in float32 on an H100);
+   GenerativeFID of step
+   8's snapshot as the script builds it, 64 samples at -b 8 from the same
+   z and the 16 val pages' real features (features within 1e-4 of
+   max|ref|, the distance within 1e-3 relative; the capstone phase's FID
+   check reads ~3e-7). Then with PyTorch's defaults:
+   `evaluate_checkpoints` with its defaults (-b 8, --num-fid-samples 1000)
+   on step 8's snapshot and the autoencoder snapshot over the last 16
+   training pages (their val.json), launch counts from 0 and exactly the
+   predicted ones (two FIDs of 125 forwards from z, 15 bias-act forwards
+   and 6 blur tails each, and 2 w+ decodes, 7 and 6 each; nothing else),
+   the reconstruction's seconds (loader start and PNG decoding in) and the
+   FID seconds split into generation, features and the Frechet distance
+   (each call between synchronizes); the same command again, which must skip every
+   combination, load nothing (the loaders raise) and launch nothing;
+   `fid_trend --num-samples 256 --batch 16` on step 11's 256px leg's
+   checkpoints/ (its iter_* and init, 16 forwards each, exactly), seconds
+   per checkpoint; `evaluate_metrics -p -c`, `extract_results_subset` on
+   two pages and `plot_metrics` on step 9's results.json (no launch; the
+   card machine has no pandas or matplotlib); COCODataset over step 7's
+   host-route coco_gt.json through a DataLoader with its collate_func
+   (every image once, with its annotations); and the bias-act forward and
+   the blur tail at every (shape, dtype) `evaluate_checkpoints` and
+   `fid_trend` launched against their plain versions.
    Steps 5, 7 to 10, the GAN legs of 11, the training and pages of 12,
-   the paths of 13 and 14 and the rates of 15 run with PyTorch's defaults
-   (TF32 cuDNN convolutions, float32 matmuls).
+   the paths of 13 and 14, the rates of 15 and 16 run with PyTorch's
+   defaults (TF32 cuDNN convolutions, float32 matmuls); each phase starts
+   from that state (kernels, training_iterations and dataset from TF32
+   off), so that it runs the same under --only.
 
 The last lines are the card's name and power limit, a JSON line of per-kernel
 numbers (the elementwise kernels' rows carry float32 and, as bf16_ms,
@@ -291,6 +346,12 @@ The flash attention check of step 12 alone (build, ptxas's registers, spills
 and shared memory for the flash kernels, the check and its timings; no path
 is driven, so the last line is {"ok": true, "only": "flash"}):
   python3 chip_smoke.py --only flash [--detail PATH]
+One phase with what it needs, e.g. the evaluation phase (discovery, dataset,
+training, segmenter, capstone, autoencoder, evaluation):
+  python3 chip_smoke.py --only evaluation [--detail PATH]
+The detail file is rewritten after every phase, with each phase's seconds
+and its steps' seconds (`phase_seconds`, `step_seconds`) and each finished
+phase's record under `phases`.
 
 The same paths by hand: cluster discovery, selection and labelling
   python -m synthesis_in_style_tpu_torch.cli.create_semantic_segmentation <ckpt> \
@@ -311,6 +372,12 @@ and page inference with its snapshot, page by page or in throughput mode
   python -m synthesis_in_style_tpu_torch.cli.analyze_image_segments <pages> \
       -f eval.json -gt <gt> -o <out> -cds --use-device-component-filter \
       [--fused-page-inference --pages-per-batch 4] [--serving-dtype bfloat16]
+checkpoint evaluation and the sweep's results
+  python -m synthesis_in_style_tpu_torch.scripts.evaluate_checkpoints \
+      checkpoints.txt datasets.json [-b 8] [--num-fid-samples 1000] [-d cuda|cpu]
+  python -m synthesis_in_style_tpu_torch.scripts.fid_trend <run>/checkpoints \
+      --images pages.json [--num-samples 256 --batch 16] [-d cuda|cpu]
+  python -m synthesis_in_style_tpu_torch.cli.evaluate_metrics results.json -p -c
 Their CPU counterparts, against the JAX package at small sizes:
   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q
 
@@ -375,6 +442,20 @@ n_mlp 2, batch_size 4, image_size 16 / 32), small CAPSTONE_*_CUTS and
 CAPSTONE_INTERRUPT, FIXTURE_ARGS of 6 pages at 64px (one batch an epoch,
 so the alarm runs every iteration), a small CHAIN_ARGS and
 FID_CHECK_IMAGES, and stand-in counters (~1.5 min).
+The evaluation phase rehearses with DEVICE = "cpu":
+`evaluation_phase(root, gan_snapshot, pages, ae_snapshot, checkpoints_dir,
+images_json, results_json, coco_gt, fns)` on a seeded 32px g_ema snapshot
+(latent_size 32, n_mlp 2, channel_multiplier 1, beside its config), its
+autoencoder from `write_autoencoder_snapshot`, a run's checkpoints/ with
+two such snapshots, 32px pages with a train.json, a sweep results.json, a
+coco_gt.json of 32px pairs, CONFIG_256 at image_size 32, EVAL_VAL_PAGES 4,
+EVAL_BATCH 2, EVAL_FID_SAMPLES 4, EVAL_TREND (4, 2), EVAL_CHECK_IMAGES 1,
+EVAL_CHECK_FID 4, EVAL_RATE_PASSES 1, set_tf32 and _defaults stubbed and stand-in counters (a
+`launches` count and a `shapes` Counter) that wrappers of
+`ops.fused_act.fused_leaky_relu_plain` and `ops.cuda.fused_blur.
+blur_demod_noise_bias_act_plain` increment; the phase's own launch
+predictions then hold on the CPU (~30 s;
+tests/test_torch_chip_smoke_evaluation.py runs it).
 """
 
 from __future__ import annotations
@@ -425,15 +506,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+SLOW_CALL_MS, SLOW_CALL_ITERS = 100.0, 3  # a call slower than this is timed over 3
+
+
 def bench_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean time per fn() call over `iters` back-to-back calls, by CUDA
     events: the device's time, or the host's dispatch where that sets the
     pace (calls of a few microseconds of device work, timed over many
-    iterations so that the mean settles)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+    iterations so that the mean settles). A call whose last warm-up took
+    over SLOW_CALL_MS (the plain versions at page and path sizes) is timed
+    over SLOW_CALL_ITERS calls."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(warmup):
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    if warmup and start.elapsed_time(end) > SLOW_CALL_MS:
+        iters = min(iters, SLOW_CALL_ITERS)
     start.record()
     for _ in range(iters):
         fn()
@@ -1406,11 +1496,13 @@ def check_training_iteration(detail, config=None) -> float:
         grads[device] = {"d_step": d_grads, "d_reg_step": r1_grads, "g_step": g_grads,
                          "g_reg_step": pl_grads}
         grads[device]["metrics"] = {k: float(v) for k, v in metrics.items()}
-    # R1 in float64 on the CPU: how far each float32 run is from it
-    state = GANTrainState(None, copy.deepcopy(disc).double(), None, None, GradRecorder(disc),
-                          None)
-    d_reg_step(state, cfg, real.double())
-    r1_float64 = state.d_optimizer.grads
+    # R1 in float64 on the card (the fused ops' plain versions): how far
+    # each float32 run is from it
+    state = GANTrainState(None, copy.deepcopy(disc).double().cuda(), None, None,
+                          GradRecorder(disc), None)
+    with _float64_on_card():
+        d_reg_step(state, cfg, real.double().cuda())
+    r1_float64 = {k: None if v is None else v.cpu() for k, v in state.d_optimizer.grads.items()}
     for step in ("d_step", "g_step"):  # these reach every parameter
         modules = {}
         for name, grad in grads["cuda"][step].items():
@@ -1469,8 +1561,8 @@ def check_training_iteration(detail, config=None) -> float:
 
 TRAIN_CONFIG = Path(__file__).resolve().parent / "configs" / "stylegan" / "stylegan_256px.yaml"
 TRAIN_OVERRIDES = {"batch_size": 16, "max_iter": 8, "snapshot_save_iter": 8}
+TRAIN_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}  # iteration 0 runs R1 and path length
 TRAIN_PAGES = 64
-STEP_NAMES = ("d_step", "d_reg_step", "g_step", "g_reg_step", "ema_step")
 
 
 def write_training_pages(root: Path) -> Path:
@@ -1496,41 +1588,21 @@ def write_training_pages(root: Path) -> Path:
     (data / "train.json").write_text(json.dumps(names))
     config = {**yaml.safe_load(TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES}
     (data / "config.json").write_text(json.dumps(config))
+    (data / "config_warmup.json").write_text(json.dumps({**config, **TRAIN_WARMUP}))
     return data
 
 
-def run_training_cli(data: Path, log_dir: Path, step_seconds=None,
-                     config_name: str = "config.json"):
-    """One run of the training CLI on the card with `data`/`config_name`.
-    With `step_seconds` (a dict), every step call is bracketed by
-    synchronizes and its seconds appended under its name."""
+def run_training_cli(data: Path, log_dir: Path, config_name: str = "config.json"):
+    """One run of the training CLI on the card with `data`/`config_name`."""
     from synthesis_in_style_tpu_torch.cli import train_stylegan_2 as cli
-    from synthesis_in_style_tpu_torch.updaters import stylegan2_updater as upd
 
-    originals = {name: getattr(upd, name) for name in STEP_NAMES}
-    if step_seconds is not None:
-        def timed(name, fn):
-            def run(*args, **kwargs):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                step_seconds.setdefault(name, []).append(time.perf_counter() - t0)
-                return out
-            return run
-        for name, fn in originals.items():
-            setattr(upd, name, timed(name, fn))
-    try:
-        argv = [str(data / config_name), "--images", str(data / "train.json"),
-                "-l", str(log_dir), "-d", "cuda"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer = cli.main(cli.resolve_log_dir(cli.build_parser().parse_args(argv)))
-        torch.cuda.synchronize()
-        return trainer, time.perf_counter() - t0
-    finally:
-        for name, fn in originals.items():
-            setattr(upd, name, fn)
+    argv = [str(data / config_name), "--images", str(data / "train.json"),
+            "-l", str(log_dir), "-d", "cuda"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = cli.main(cli.resolve_log_dir(cli.build_parser().parse_args(argv)))
+    torch.cuda.synchronize()
+    return trainer, time.perf_counter() - t0
 
 
 PORT_KERNELS = ("bias_act_fwd_kernel", "bias_act_bwd_kernel", "blur_tail_kernel",
@@ -1621,7 +1693,7 @@ def check_training_run(trainer, log_dir: Path) -> dict:
 REPO_ROOT = Path(__file__).resolve().parent
 SEG_CONFIG = REPO_ROOT / "configs" / "segmenter" / "stylegan2_doc_ufcn_segmenter.yaml"
 COLOR_MAP = REPO_ROOT / "configs" / "handwriting_colors.json"
-SEG_OVERRIDES = {"max_iter": 16, "snapshot_save_iter": 16, "log_iter": 8}
+SEG_OVERRIDES = {"max_iter": 8, "snapshot_save_iter": 8, "log_iter": 4}
 PAGE_H, PAGE_W, NUM_PAGES = 1536, 2048, 4
 SWEEP = {"min_confidence": ("0.0", "0.7"), "min_contour_area": ("0", "55")}
 DEVICE = "cuda"  # the segmenter phase's device (its CPU rehearsal sets "cpu")
@@ -2062,16 +2134,21 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
     measured run with launch counts from 0), then page inference with its
     snapshot (warm-up, then the measured sweep), then the page path's
     numbers; logs and returns them."""
+    steps = Steps()
     seg_config, seg_settings = write_segmenter_config(root)
     run_segmenter_training(dataset, seg_config, root / "seg_warmup")
+    steps.mark("training_warmup")
     for fn in fns.values():
         fn.launches = 0
     trainer, cli_seconds = run_segmenter_training(dataset, seg_config, root / "seg")
     launches = {name: fn.launches for name, fn in fns.items()}
     snap = check_segmenter_run(trainer, root / "seg")
     iters = trainer.updater.iteration
+    steps.mark("training")
     breakdown = segmenter_breakdown(trainer)
+    steps.mark("breakdown")
     doc_ufcn_rel = check_doc_ufcn_card_vs_cpu(snap, dataset)
+    steps.mark("doc_ufcn_card_vs_cpu")
     pages, pages_gt = write_pages(root)
     run_analyze(pages, pages_gt, snap, root / "analyze_warmup",
                 {"min_confidence": ("0.7",), "min_contour_area": ("55",)})
@@ -2080,7 +2157,9 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
     analyze_seconds = run_analyze(pages, pages_gt, snap, root / "analyze")
     page_launches = {name: fn.launches for name, fn in fns.items()}
     page_scores = check_results(root / "analyze")
+    steps.mark("analyze")
     page = page_path_numbers(snap, pages, cc_detail)
+    steps.mark("page_numbers")
     host_sweep = {"min_confidence": ("0.7",), "min_contour_area": ("55",)}
     for fn in fns.values():
         fn.launches = 0
@@ -2089,6 +2168,7 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
     host_launches = {name: fn.launches for name, fn in fns.items()}
     check_results(root / "analyze_host", host_sweep)
     host_page = host_filter_numbers(snap, pages, root)
+    steps.mark("host_filter")
 
     batch = seg_settings["batch_size"]
     out = {"iterations": iters, "batch": batch, "loop_seconds": trainer.seconds,
@@ -2100,7 +2180,7 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
            "page_launches": page_launches, "page_scores": page_scores, "page": page,
            "snapshot": str(snap), "pages": str(pages), "pages_gt": str(pages_gt),
            "host_filter_cli_seconds": host_cli_seconds, "host_filter_launches": host_launches,
-           "host_filter": host_page}
+           "host_filter": host_page, "seconds": steps.seconds}
     log(f"segmenter training path (DocUFCN 32/64/128/256, 256px, batch {batch}, bf16, "
         f"{iters} iterations): {out['images_per_s']:.2f} training images/s "
         f"(train loop {trainer.seconds:.3f} s incl. the validation pass, whole CLI "
@@ -2125,10 +2205,10 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
 # whole-page serving: the fused page program (one CUDA graph per page
 # tiling), page batching (segment_images) and bfloat16 serving
 
-SERVING_ROUNDS = 12  # timed passes over the pages per pages/s reading (48 pages)
-# the analyze CLI's page counts for its steady-state rate: 1 and 3 of
+SERVING_ROUNDS = 2  # timed passes over the pages per pages/s reading (16 pages)
+# the analyze CLI's page counts for its steady-state rate: 1 and 2 of
 # throughput mode's load chunks (4 x pages per batch), at one sweep setting
-SERVING_CLI_PAGES = (16, 48)
+SERVING_CLI_PAGES = (8, 16)
 # pixels whose float32 confidences' top two differ by at least this in log
 # (the logit margin, where patches do not overlap) hold the bfloat16 gate
 BF16_LOGIT_MARGIN = 4.0
@@ -2462,9 +2542,13 @@ def serving_phase(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict
     reserved_at_start = _reserved_bytes()
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    steps = Steps()
     rates = serving_rates(snap, images)
+    steps.mark("rates")
     parity = serving_parity(snap, images, mixed)
+    steps.mark("parity")
     sweep = serving_sweep(snap, images)
+    steps.mark("sweep")
 
     for fn in fns.values():
         fn.launches = 0
@@ -2484,7 +2568,9 @@ def serving_phase(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict
     if max(differing) > 1e-6 * PAGE_H * PAGE_W:
         raise AssertionError(f"throughput CLI: pixels counted differently from the unfused "
                              f"CLI's confusion matrices, per page and setting: {differing}")
+    steps.mark("cli_throughput")
     cli_rates = serving_cli_rates(root, snap, pages, pages_gt)
+    steps.mark("cli_rates")
     memory = ({"reserved_at_start_bytes": reserved_at_start,
                "max_reserved_bytes": torch.cuda.max_memory_reserved(),
                "max_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -2495,7 +2581,7 @@ def serving_phase(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict
            "cli_page_passes": NUM_PAGES * len(SWEEP["min_confidence"])
            * len(SWEEP["min_contour_area"]), "cli_launches": cli_launches,
            "cli_pixels_counted_differently": differing, "cli_rates": cli_rates,
-           "memory": memory}
+           "memory": memory, "seconds": steps.seconds}
     geometry = rates["geometry"]
     log(f"serving ({PAGE_W}x{PAGE_H}, DocUFCN 32/64/128/256, patches {geometry['patch']}, "
         f"batch {geometry['batch']}, {geometry['patches_per_page']} patches a page, vote "
@@ -2537,7 +2623,7 @@ def serving_phase(root: Path, snap: Path, pages: Path, pages_gt: Path, fns: dict
 # cluster discovery: create_semantic_segmentation, the k-means fit card vs
 # CPU, select_cluster_config and auto_label_clusters
 
-DISCOVERY_SAMPLES = 100  # the CLI's own -n and -b
+DISCOVERY_SAMPLES = 20  # the CLI's -n (its default 100 cut for time) and -b
 DISCOVERY_BATCH = 10
 DISCOVERY_RANGE = (6, 9)  # -c 6 9: k = 6, 7, 8
 DISCOVERY_WARMUP = ("-n", "10", "-c", "6", "7")
@@ -2793,10 +2879,13 @@ def discovery_phase(run: Path, fns: dict) -> dict:
     generator's two kernels must run, CC must not); its artifacts; the fit
     card vs CPU; selection and labelling; one statistics table card vs
     CPU."""
+    marks = Steps()
     run_discovery(run, "discovery_warmup", DISCOVERY_WARMUP)
+    marks.mark("warmup")
     for fn in fns.values():
         fn.launches = 0
     report = run_discovery(run, "semantic_segmentation")
+    marks.mark("cli")
     launches = {name: fn.launches for name, fn in fns.items()}
     for name in ("fused_bias_act", "fused_blur"):
         if launches[name] <= 0:
@@ -2819,18 +2908,21 @@ def discovery_phase(run: Path, fns: dict) -> dict:
         log(f"  fit layer {f['layer']:>2} ({shapes[f['layer']][0]}px x {shapes[f['layer']][1]}) "
             f"k={f['k']}: {f['fit_s']:.4f} s, {f['n_steps']} steps, inertia {f['inertia']:.6f}")
     card_vs_cpu = fit_card_vs_cpu(run)
+    marks.mark("fit_card_vs_cpu")
     for fn in fns.values():
         fn.launches = 0
     selection = run_selection(run, sem)
+    marks.mark("selection")
     # read before the segmenter check's own generator forward
     selection_launches = {name: fn.launches for name, fn in fns.items()}
     selection["selected_text_share"] = check_selection_segmenter(run, sem)
     stats_rel = stats_card_vs_cpu(run, sem)
+    marks.mark("selection_checks")
     return {**{k: v for k, v in report.items() if k != "fits"}, "fits": fits,
             "fit_steps": steps, "fit_ms_per_step": fit_sum / steps * 1e3,
             "layer_shapes": shapes, "launches": launches, "fit_card_vs_cpu": card_vs_cpu,
             "selection": selection, "selection_launches": selection_launches,
-            "stats_card_vs_cpu_rel_err": stats_rel}
+            "stats_card_vs_cpu_rel_err": stats_rel, "seconds": marks.seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -2840,10 +2932,10 @@ def discovery_phase(run: Path, fns: dict) -> dict:
 CAPSTONE_128 = REPO_ROOT / "configs" / "stylegan" / "capstone_128px.yaml"
 CAPSTONE_256 = REPO_ROOT / "configs" / "stylegan" / "capstone_256px.yaml"
 # the recipe's own configs at their widths; only iteration and sample counts cut
-CAPSTONE_128_CUTS = {"max_iter": 40, "snapshot_save_iter": 20, "fid_eval_iter": 20,
+CAPSTONE_128_CUTS = {"max_iter": 20, "snapshot_save_iter": 10, "fid_eval_iter": 10,
                      "fid_samples": 64}
-CAPSTONE_256_CUTS = {"max_iter": 16, "fid_eval_iter": 8, "fid_samples": 64}
-CAPSTONE_INTERRUPT = 20  # the 128px leg's first attempt dies after this snapshot
+CAPSTONE_256_CUTS = {"max_iter": 8, "fid_eval_iter": 4, "fid_samples": 64}
+CAPSTONE_INTERRUPT = 10  # the 128px leg's first attempt dies after this snapshot
 CAPSTONE_WIDTHS = {}  # a CPU rehearsal shrinks widths and sizes here
 FIXTURE_ARGS = ("--size", "256", "--num-pages", "64", "--num-eval", "8")
 # g_ema after a few dozen iterations is still mostly its random init (EMA
@@ -2853,7 +2945,7 @@ FIXTURE_ARGS = ("--size", "256", "--num-pages", "64", "--num-eval", "8")
 # class-determination layers and the fine layer hold both classes, as the
 # dataset segmenter needs (class names only: no gate is read)
 CHAIN_SELECT_ARGS = "--class-mode side --left-threshold 0.5 --num-fg-layers 1"
-CHAIN_ARGS = ("--ks", "4", "6", "--num-discovery-samples", "16", "--num-pairs", "64",
+CHAIN_ARGS = ("--ks", "4", "6", "--num-discovery-samples", "16", "--num-pairs", "32",
               "--epochs", "1", "--batch-size", "8", "--min-confidence", "0.0", "0.7",
               "--min-contour-area", "0", "55", "--use-device-component-filter")
 FID_CHECK_IMAGES = 8
@@ -3187,6 +3279,7 @@ def capstone_phase(root: Path, fns: dict) -> dict:
     on the 256px snapshot; the FID embedding card vs CPU. Launch counts are
     set to 0 before each GAN leg and read after it; the chain's legs count
     in their own processes."""
+    steps = Steps()
     fixture = root / "fixture"
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m",
@@ -3199,7 +3292,9 @@ def capstone_phase(root: Path, fns: dict) -> dict:
     # 128px: attempt 1 dies after its iteration-20 snapshot, attempt 2 resumes
     config_128 = capstone_config(root, CAPSTONE_128, CAPSTONE_128_CUTS, "capstone_128")
     batch = int(json.loads(config_128.read_text())["batch_size"])
+    steps.mark("fixture")
     loader_128 = gan_loader_epochs(fixture, config_128)
+    steps.mark("loader_128")
     log(f"capstone 128px leg's loader alone ({loader_128['workers']} workers kept, "
         f"{loader_128['batches_per_epoch']} batches an epoch): epochs' first batches "
         + ", ".join(f"{t:.3f}" for t in loader_128["first_batch_s"]) + " s, epochs "
@@ -3215,6 +3310,7 @@ def capstone_phase(root: Path, fns: dict) -> dict:
             pass
         run_gan_leg(config_128, fixture, root / "gan128", "--resume-ckpt", "latest")
     launches_128 = {name: fn.launches for name, fn in fns.items()}
+    steps.mark("gan_128")
     leg_128 = _leg_numbers(rec_128, batch)
     first, second = leg_128["attempts"]
     if (first["end_iteration"], second["start_iteration"], second["end_iteration"]) != \
@@ -3246,6 +3342,7 @@ def capstone_phase(root: Path, fns: dict) -> dict:
         run_gan_leg(config_256, fixture, root / "gan256", "--init-ckpt", str(final_128))
         leg_256_s = time.perf_counter() - t0
     launches_256 = {name: fn.launches for name, fn in fns.items()}
+    steps.mark("gan_256")
     leg_256 = _leg_numbers(rec_256, batch)
     (attempt_256,) = leg_256["attempts"]
     _check_fid_history(attempt_256, "256px leg")
@@ -3262,14 +3359,17 @@ def capstone_phase(root: Path, fns: dict) -> dict:
         + ", ".join(f"({it}, {f:.4f}, {s:.3f})" for it, f, s in attempt_256["fid"])
         + f"; alarm fid_history {attempt_256['alarm_fid_history']}; launches {launches_256}")
 
+    steps.mark("warm_start_check")
     chain = run_chain(root, final_256, fixture)
     check_chain(chain)
+    steps.mark("chain")
     report = chain["report"]
     log("capstone chain (" + " ".join(CHAIN_ARGS) + f", --select-args '{CHAIN_SELECT_ARGS}'): "
         + ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in report["legs"].items())
         + f"; total {report['total_seconds']:.3f} s; best dice {report['best_dice']}")
     log("  launches by leg: " + "; ".join(f"{k} {v}" for k, v in chain["launches_by_leg"].items()))
     fid_check = fid_card_vs_cpu(fixture, final_256)
+    steps.mark("fid_card_vs_cpu")
     log(f"FID embedding card vs CPU (TF32 off, {FID_CHECK_IMAGES} pages and {FID_CHECK_IMAGES} "
         f"g_ema samples at 256px): features max relative error "
         f"{fid_check['features_rel_err']:.3g}; Frechet distance card {fid_check['fid_card']:.6f}, "
@@ -3280,7 +3380,7 @@ def capstone_phase(root: Path, fns: dict) -> dict:
             "loader_128": loader_128,
             "gan_256": leg_256, "launches_256": launches_256, "gan_256_cli_s": leg_256_s,
             "warm_start": warm, "chain": chain, "chain_launches": chain_launches,
-            "fid_card_vs_cpu": fid_check}
+            "fid_card_vs_cpu": fid_check, "snapshot_256": final_256, "seconds": steps.seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3290,8 +3390,9 @@ def capstone_phase(root: Path, fns: dict) -> dict:
 BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense
 TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 TU_CONFIG = REPO_ROOT / "configs" / "segmenter" / "stylegan2_trans_u_net_segmenter.yaml"
-TU_OVERRIDES = {"max_iter": 16, "snapshot_save_iter": 16, "log_iter": 8}
+TU_OVERRIDES = {"max_iter": 8, "snapshot_save_iter": 8, "log_iter": 4}
 TU_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}
+TU_TIMED_STEPS = 5  # the training step alone: timed steps
 TU_CHECK_SIZE = 512  # the card-vs-CPU network's image size (1024 tokens)
 TU_CHECK_BATCH = 2
 # (B, heads, N, d): the shipped R50-ViT-B_16 at 512px (training and every
@@ -3711,10 +3812,12 @@ def check_transunet_run(trainer, log_dir: Path, impl: str) -> dict:
 
 def transunet_training(root: Path, dataset: Path, impl: str, fns: dict) -> dict:
     """The shipped config with `attention_impl: impl`: a 2-iteration warm-up
-    run, then TU_OVERRIDES' 16 iterations with one validation pass, launch
-    counts from 0 and forward passes counted."""
-    run_transunet_training(dataset, write_transunet_config(root, impl, TU_WARMUP),
-                           root / f"tu_{impl}_warmup")
+    run (flash only: the same process then runs xla on warm convolutions),
+    then TU_OVERRIDES' iterations with one validation pass, launch counts
+    from 0 and forward passes counted."""
+    if impl == "flash":
+        run_transunet_training(dataset, write_transunet_config(root, impl, TU_WARMUP),
+                               root / f"tu_{impl}_warmup")
     for fn in fns.values():
         fn.launches = 0
     config = write_transunet_config(root, impl, TU_OVERRIDES)
@@ -3762,8 +3865,8 @@ def transunet_training(root: Path, dataset: Path, impl: str, fns: dict) -> dict:
 
 
 def transunet_step_alone(updater, batch: int, size: int) -> dict:
-    """The training step alone on a seeded batch already on the device: 10
-    synchronized steps after one warm-up, then one under torch.profiler
+    """The training step alone on a seeded batch already on the device:
+    TU_TIMED_STEPS synchronized steps after one warm-up, then one under torch.profiler
     (`profile_call`; a no-op stand-in in a CPU rehearsal)."""
     g = torch.Generator().manual_seed(SEED + 19)
     on_card = {"images": (torch.rand((batch, 3, size, size), generator=g) * 2 - 1).to(
@@ -3773,10 +3876,10 @@ def transunet_step_alone(updater, batch: int, size: int) -> dict:
     updater.step(on_card)
     _sync()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(TU_TIMED_STEPS):
         updater.step(on_card)
     _sync()
-    step_s = (time.perf_counter() - t0) / 10
+    step_s = (time.perf_counter() - t0) / TU_TIMED_STEPS
     return {"step_s": step_s, "step_images_per_s": batch / step_s,
             "step_profile": profile_call(lambda: updater.step(on_card))}
 
@@ -3796,7 +3899,7 @@ def transunet_float32_step(updater, batch: int, size: int, impl: str, layers: in
     finally:
         updater.compute_dtype = saved
     out["launches"] = {name: fn.launches for name, fn in fns.items()}
-    steps = 12  # transunet_step_alone: a warm-up, 10 timed, one profiled
+    steps = TU_TIMED_STEPS + 2  # transunet_step_alone: a warm-up, the timed, one profiled
     want = layers * steps if impl == "flash" else 0
     got = {name: out["launches"][name] for name in ("flash_attention_fwd", "flash_attention_bwd")}
     if got != {"flash_attention_fwd": want, "flash_attention_bwd": want}:
@@ -3922,20 +4025,26 @@ def transunet_serving(snap: Path, pages: Path, fns: dict, layers: int) -> dict:
 def transunet_phase(root: Path, dataset: Path, pages: Path, pages_gt: Path, fns: dict) -> dict:
     """The full-width network card vs CPU, training through the CLI with
     flash and then xla, and page inference with the flash snapshot."""
+    steps = Steps()
     network = check_transunet_card_vs_cpu()
     torch.cuda.empty_cache()
+    steps.mark("network_card_vs_cpu")
     flash = transunet_training(root, dataset, "flash", fns)
     torch.cuda.empty_cache()
+    steps.mark("training_flash")
     xla = transunet_training(root, dataset, "xla", fns)
     torch.cuda.empty_cache()
+    steps.mark("training_xla")
     page = transunet_page_path(root, Path(flash["snapshot"]), pages, pages_gt, fns,
                                flash["layers"])
+    steps.mark("page_path")
     page["serving"] = transunet_serving(Path(flash["snapshot"]), pages, fns, flash["layers"])
+    steps.mark("serving")
     log(f"TransUNet training images/s: flash {flash['images_per_s']:.2f}, xla "
         f"{xla['images_per_s']:.2f}; the float32 step alone: flash "
         f"{flash['float32_step']['step_s']:.4f} s, xla {xla['float32_step']['step_s']:.4f} s")
     return {"network": network, "training_flash": flash,
-            "training_xla": xla, "page": page}
+            "training_xla": xla, "page": page, "seconds": steps.seconds}
 
 
 
@@ -3950,9 +4059,9 @@ SWAGAN_CONFIG = {  # configs/stylegan/swagan_256px.yaml's generator, as JSON
     "image_size": 256, "latent_size": 512, "n_mlp": 8, "channel_multiplier": 2,
     "stylegan_variant": "swagan",
 }
-SWAGAN_DISCOVERY = (32, 8, (6, 9))  # -n 32 -b 8 -c 6 9
+SWAGAN_DISCOVERY = (16, 8, (6, 9))  # -n 16 -b 8 -c 6 9
 EMANET_CONFIG = REPO_ROOT / "configs" / "segmenter" / "swagan_ema_net_segmenter.yaml"
-EMANET_OVERRIDES = {"max_iter": 16, "snapshot_save_iter": 16, "log_iter": 8}
+EMANET_OVERRIDES = {"max_iter": 8, "snapshot_save_iter": 8, "log_iter": 4}
 EMANET_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}
 EMANET_CHECK_BATCH = 2
 
@@ -3977,8 +4086,9 @@ def swagan_training(data: Path, root: Path, fns: dict) -> dict:
 
     config = {**yaml.safe_load(SWAGAN_TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES}
     (data / "swagan_config.json").write_text(json.dumps(config))
+    (data / "swagan_config_warmup.json").write_text(json.dumps({**config, **TRAIN_WARMUP}))
     log(f"SWAGAN training: {SWAGAN_TRAIN_CONFIG.name} cut to {TRAIN_OVERRIDES}")
-    run_training_cli(data, root / "swagan_train_warmup", config_name="swagan_config.json")
+    run_training_cli(data, root / "swagan_train_warmup", config_name="swagan_config_warmup.json")
     _zero(fns)
     fns["fused_bias_act"].shapes.clear()
     trainer, wall = run_training_cli(data, root / "swagan_train", config_name="swagan_config.json")
@@ -4311,7 +4421,7 @@ DATASET_GAN_CREATION = REPO_ROOT / "configs" / "dataset_creation" / \
     "stylegan2_dataset_gan_bw_hwp_wpi.json"
 # the activation CLI's -n, -b: 4 train and 1 test image (10 until the script
 # grew: its zlib tensors.npz write, ~6 s an image, set the phase's time)
-DATASET_GAN_IMAGES = (5, 5)
+DATASET_GAN_IMAGES = (3, 3)
 DATASET_GAN_ITERATIONS = (500, 250)  # the generate: true run, and its forced epoch
 DATASET_GAN_SHORT = 50  # iterations of the generate: false run
 DATASET_GAN_SWAGAN = (4, 20)  # SWAGAN: the activation CLI's -n (and -b), iterations
@@ -4850,13 +4960,13 @@ def dataset_gan_phase(root: Path, gan_snapshot: Path, swagan_snapshot: Path, fns
 
 
 AE_STEP_BATCH = 2  # the autoencoder step card vs CPU
-AE_RATE = (16, 8)  # autoencoder training: iterations, batch
-ADV_RATE = (16, 8)  # the adversarial CLI: iterations, batch
-ADV_V1 = (4, 4)  # the adversarial CLI with stylegan_variant 1: iterations, batch
-PROJECTION = (4, 100, 100)  # run_image_reconstruction: images, w+ steps, noise steps
+AE_RATE = (8, 8)  # autoencoder training: iterations, batch
+ADV_RATE = (8, 8)  # the adversarial CLI: iterations, batch
+ADV_V1 = (2, 4)  # the adversarial CLI with stylegan_variant 1: iterations, batch
+PROJECTION = (4, 50, 50)  # run_image_reconstruction: images, w+ steps, noise steps
 PROJECTION_CHECK_STEPS = 3  # steps of each stage held card vs CPU
-ANALYZE_IMAGES = 32
-AE_DISCOVERY = (32, 8, (6, 8))  # -i discovery's -n, -b, -c
+ANALYZE_IMAGES = 16
+AE_DISCOVERY = (16, 8, (6, 8))  # -i discovery's -n, -b, -c
 AE_CUTS = {}  # a CPU rehearsal shrinks the autoencoder configs' sizes here
 # how far beyond twice the CPU a gradient tensor on the card may sit from
 # float64 (`_grad_errors`): AE_GRAD_TOL of the step's largest gradient, capped
@@ -5684,7 +5794,536 @@ def autoencoder_phase(root: Path, gan_snapshot: Path, pages: Path, fns: dict) ->
                        (b - a for a, b in zip(marks, marks[1:]))))
     log("autoencoder phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) +
         f"; whole phase {marks[-1] - marks[0]:.1f}")
-    return {"parity": parity, **paths, "seconds": seconds}
+    return {"parity": parity, **paths, "snapshot": ae_path, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint evaluation and results analysis: evaluate_checkpoints,
+# fid_trend, the results CLIs and the COCO dataset
+
+EVAL_VAL_PAGES = 16  # the training pages' val.json: the last 16 of them
+EVAL_BATCH, EVAL_FID_SAMPLES = 8, 1000  # evaluate_checkpoints' defaults, -b and FID samples
+EVAL_TREND = (256, 16)  # fid_trend's --num-samples and --batch
+EVAL_CHECK_IMAGES = 4  # reconstruction card vs CPU, one image a batch
+EVAL_CHECK_FID = 64  # FID card vs CPU: samples of each kind, at -b EVAL_BATCH
+EVAL_SUBSET_PAGES = 2  # extract_results_subset's pages
+EVAL_RATE_PASSES = 3  # timed passes over the val pages on the card: the reconstruction rate
+PSNR_TOLERANCE, SSIM_TOLERANCE, FID_FEATURE_TOLERANCE, FID_TOLERANCE = 1e-3, 1e-5, 1e-4, 1e-3
+# The script's float32 SSIM card vs CPU: SSIM_TOLERANCE for the decode plus,
+# on each device, the float32 metric's own rounding on these flat pages (its
+# variances E[x^2] - E[x]^2 cancel; read at up to 1.05e-5 from the float64
+# SSIM of the same images, on either device). Readings card vs CPU:
+# 1.007e-5 to 1.028e-5 (NVIDIA H100 80GB HBM3, 700 W).
+SSIM32_TOLERANCE = 3e-5
+
+
+class Steps:
+    """Seconds of a phase's steps: `mark(name)` closes the step begun at the
+    previous mark (or at construction) under that name."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
+        self._t = now
+
+
+def _forward_launches(size: int, forwards: int, n_mlp: int) -> dict:
+    """Launches of `forwards` generator forwards from z at `size` px: the
+    mapping MLP's n_mlp bias-acts, then those of a w+ decode."""
+    out = _expected_launches(size, forwards, 0)
+    out["fused_bias_act"] += forwards * n_mlp
+    return {**out, "segmented_cc": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+
+def write_val_json(pages: Path) -> Path:
+    """The training pages' val.json: their last EVAL_VAL_PAGES pages."""
+    path = pages / "val.json"
+    path.write_text(json.dumps(json.loads((pages / "train.json").read_text())[-EVAL_VAL_PAGES:]))
+    return path
+
+
+class _recording_reconstructions(list):
+    """While active, each reconstruction `evaluate_checkpoints` scores is
+    appended (PSNRSSIMEvaluator.psnr_and_ssim's image)."""
+
+    def __enter__(self):
+        from synthesis_in_style_tpu_torch.evaluation.psnr_ssim import PSNRSSIMEvaluator
+
+        self._original = PSNRSSIMEvaluator.psnr_and_ssim
+        original, record = self._original, self
+
+        def recorded(evaluator, image, target):
+            record.append(image)
+            return original(evaluator, image, target)
+
+        PSNRSSIMEvaluator.psnr_and_ssim = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from synthesis_in_style_tpu_torch.evaluation.psnr_ssim import PSNRSSIMEvaluator
+
+        PSNRSSIMEvaluator.psnr_and_ssim = self._original
+        return False
+
+
+def reconstruction_card_vs_cpu(ae_path: Path, val_json: Path) -> dict:
+    """`evaluate_checkpoints`' reconstruction scores of the autoencoder on
+    EVAL_CHECK_IMAGES validation images, one a batch, on the card and on the
+    CPU with TF32 off. Per image: PSNR within PSNR_TOLERANCE dB; the SSIM of
+    the two reconstructions computed in float64 within SSIM_TOLERANCE (the
+    decode is ~1e-5 of max|ref| from the CPU); the script's float32 SSIM
+    within SSIM32_TOLERANCE (the metric's own float32 rounding on each
+    device comes on top of the decode's difference)."""
+    from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import GANImageDataset
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+    from synthesis_in_style_tpu_torch.evaluation.psnr_ssim import ssim
+    from synthesis_in_style_tpu_torch.models.factory import load_autoencoder_or_generator
+    from synthesis_in_style_tpu_torch.scripts.evaluate_checkpoints import reconstruction_scores
+
+    config = load_config_from_checkpoint(ae_path)
+    data = GANImageDataset(val_json, root=val_json.parent, image_size=config["image_size"],
+                           num_channels=config.get("input_dim", 3))
+    batches = [{"images": data[i]["images"][None]} for i in range(EVAL_CHECK_IMAGES)]
+    scores, ssim64 = {}, {}
+    set_tf32(False)
+    try:
+        for device in (DEVICE, "cpu"):
+            model = load_autoencoder_or_generator(ae_path, config, device)
+            scores[device], ssim64[device] = [], []
+            for b in batches:
+                images = b["images"].to(device)
+                with _recording_reconstructions() as recon:
+                    scores[device].append(reconstruction_scores(model, [b],
+                                                                torch.device(device)))
+                ssim64[device].append(float(ssim(recon[0].double(), images.double())))
+            del model
+    finally:
+        _defaults()
+    d_psnr = max(abs(a["psnr"] - b["psnr"]) for a, b in zip(scores[DEVICE], scores["cpu"]))
+    d_ssim = max(abs(a["ssim"] - b["ssim"]) for a, b in zip(scores[DEVICE], scores["cpu"]))
+    d_ssim64 = max(abs(x - y) for x, y in zip(ssim64[DEVICE], ssim64["cpu"]))
+    if not (d_psnr <= PSNR_TOLERANCE and d_ssim64 <= SSIM_TOLERANCE
+            and d_ssim <= SSIM32_TOLERANCE):
+        raise AssertionError(f"reconstruction card vs CPU: |dPSNR| {d_psnr} dB, |dSSIM| "
+                             f"{d_ssim} (limit {SSIM32_TOLERANCE}), in float64 {d_ssim64}")
+    return {"images": EVAL_CHECK_IMAGES, "psnr_abs_diff": d_psnr, "ssim_abs_diff": d_ssim,
+            "ssim64_abs_diff": d_ssim64,
+            "psnr_card": [s["psnr"] for s in scores[DEVICE]],
+            "ssim_card": [s["ssim"] for s in scores[DEVICE]]}
+
+
+def reconstruction_rate(ae_path: Path, val_json: Path) -> dict:
+    """`evaluate_checkpoints`' reconstruction scoring (the w+ decode, then
+    PSNR and SSIM image by image) of the val pages already on the card, in
+    batches of EVAL_BATCH, with PyTorch's defaults and no loader: one warm
+    pass, then EVAL_RATE_PASSES timed."""
+    from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import GANImageDataset
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+    from synthesis_in_style_tpu_torch.models.factory import load_autoencoder_or_generator
+    from synthesis_in_style_tpu_torch.scripts.evaluate_checkpoints import reconstruction_scores
+
+    config = load_config_from_checkpoint(ae_path)
+    data = GANImageDataset(val_json, root=val_json.parent, image_size=config["image_size"],
+                           num_channels=config.get("input_dim", 3))
+    images = torch.stack([data[i]["images"] for i in range(len(data))]).to(DEVICE)
+    batches = [{"images": images[i:i + EVAL_BATCH]} for i in range(0, len(images), EVAL_BATCH)]
+    model = load_autoencoder_or_generator(ae_path, config, DEVICE)
+    reconstruction_scores(model, batches, torch.device(DEVICE))
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(EVAL_RATE_PASSES):
+        reconstruction_scores(model, batches, torch.device(DEVICE))
+    _sync()
+    seconds = time.perf_counter() - t0
+    n = EVAL_RATE_PASSES * len(images)
+    return {"images": n, "batch": EVAL_BATCH, "seconds": seconds, "images_per_s": n / seconds}
+
+
+def fid_card_vs_cpu_at_batch(gan_snapshot: Path, val_json: Path) -> dict:
+    """GenerativeFID of the GAN snapshot's g_ema as evaluate_checkpoints
+    builds it, on EVAL_CHECK_FID samples at -b EVAL_BATCH (the same z: a CPU
+    generator seeded 42) and the real features of the val pages, on the
+    card and on the CPU with TF32 off: features within FID_FEATURE_TOLERANCE
+    of max|ref|, the distance within FID_TOLERANCE relative."""
+    import warnings
+
+    import numpy as np
+
+    from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import GANImageDataset
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+    from synthesis_in_style_tpu_torch.evaluation import fid
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+
+    config = load_config_from_checkpoint(gan_snapshot)
+    data = GANImageDataset(val_json, root=val_json.parent, image_size=config["image_size"])
+    images = torch.stack([data[i]["images"] for i in range(len(data))])
+    real_batches = [{"images": images[i:i + EVAL_BATCH]}
+                    for i in range(0, len(images), EVAL_BATCH)]
+    feats, distance = {}, {}
+    set_tf32(False)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for device in (DEVICE, "cpu"):
+                gen = load_generator(gan_snapshot, config, device)
+                metric = fid.GenerativeFID(latent_size=gen.style_dim, batch_size=EVAL_BATCH,
+                                           num_samples=EVAL_CHECK_FID, batch_image_key="images",
+                                           device=device)
+
+                @torch.no_grad()
+                def sample(z, gen=gen):
+                    return gen([z], randomize_noise=False)[0]
+
+                fake = metric._collect(metric.fake_batches(sample, None))
+                real = np.concatenate([metric.feature_fn(b["images"].to(device)).float().cpu()
+                                       .numpy() for b in real_batches])
+                feats[device] = (real, fake)
+                r, f = fid.get_statistics(real), fid.get_statistics(fake)
+                distance[device] = fid.calculate_frechet_distance(r.mu, r.sigma, f.mu, f.sigma)
+                del gen
+    finally:
+        _defaults()
+    rel = max(float(abs(a - b).max() / abs(b).max())
+              for a, b in zip(feats[DEVICE], feats["cpu"]))
+    fid_rel = abs(distance[DEVICE] - distance["cpu"]) / abs(distance["cpu"])
+    if not (rel <= FID_FEATURE_TOLERANCE and fid_rel <= FID_TOLERANCE):
+        raise AssertionError(f"FID card vs CPU: features {rel} of max|ref|, distance {fid_rel} "
+                             "relative")
+    return {"samples": EVAL_CHECK_FID, "batch": EVAL_BATCH, "features_rel_err": rel,
+            "fid_card": distance[DEVICE], "fid_cpu": distance["cpu"], "fid_rel_diff": fid_rel}
+
+
+class _timed_evaluation:
+    """While active: evaluate_checkpoints' reconstruction loops (loader
+    start and PNG decoding included), and GenerativeFID's generation,
+    features and Frechet distances, each call between synchronizes; seconds
+    summed under `seconds`, the reconstructed images counted."""
+
+    def __init__(self):
+        self.seconds = {"reconstruction": 0.0, "generation": 0.0, "features": 0.0,
+                        "frechet": 0.0}
+        self.images = 0
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync()
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        from synthesis_in_style_tpu_torch.evaluation import fid
+        from synthesis_in_style_tpu_torch.scripts import evaluate_checkpoints as ec
+
+        self._originals = (ec.reconstruction_scores, fid.GenerativeFID.fake_batches,
+                           fid.FID._collect, fid.calculate_frechet_distance)
+        recon, fake, collect, frechet = self._originals
+        rec = self
+
+        def reconstruction(model, loader, device):
+            rec.images += len(loader.dataset) if hasattr(model, "encode") else 0
+            return rec._timed("reconstruction", recon)(model, loader, device)
+
+        def fake_batches(metric, model_fn, loader):
+            return fake(metric, rec._timed("generation", model_fn), loader)
+
+        def timed_collect(metric, batches):
+            feature_fn = metric.feature_fn
+            metric.feature_fn = rec._timed("features", feature_fn)
+            try:
+                return collect(metric, batches)
+            finally:
+                metric.feature_fn = feature_fn
+
+        ec.reconstruction_scores = reconstruction
+        fid.GenerativeFID.fake_batches = fake_batches
+        fid.FID._collect = timed_collect
+        fid.calculate_frechet_distance = self._timed("frechet", frechet)
+        return self
+
+    def __exit__(self, *exc):
+        from synthesis_in_style_tpu_torch.evaluation import fid
+        from synthesis_in_style_tpu_torch.scripts import evaluate_checkpoints as ec
+
+        (ec.reconstruction_scores, fid.GenerativeFID.fake_batches, fid.FID._collect,
+         fid.calculate_frechet_distance) = self._originals
+        return False
+
+
+class _refuse_loading:
+    """While active, loading a checkpoint or its config raises."""
+
+    NAMES = ("load_autoencoder_or_generator", "load_generator", "load_config_from_checkpoint")
+
+    def __enter__(self):
+        from synthesis_in_style_tpu_torch.scripts import evaluate_checkpoints as ec
+
+        self._originals = {name: getattr(ec, name) for name in self.NAMES}
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("evaluate_checkpoints loaded a checkpoint it had evaluated")
+
+        for name in self.NAMES:
+            setattr(ec, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        from synthesis_in_style_tpu_torch.scripts import evaluate_checkpoints as ec
+
+        for name, fn in self._originals.items():
+            setattr(ec, name, fn)
+        return False
+
+
+def run_evaluate_checkpoints(root: Path, checkpoints: list, val_json: Path, fns: dict) -> dict:
+    """`evaluate_checkpoints` with its defaults (-b 8, --num-fid-samples
+    1000) on the checkpoints and the val.json, launch counts from 0 and its
+    time split; then the same command again, which must skip every
+    combination, load nothing and launch nothing."""
+    import warnings
+
+    from synthesis_in_style_tpu_torch.scripts import evaluate_checkpoints as ec
+
+    listing = root / "eval_checkpoints.txt"
+    listing.write_text("".join(f"{c}\n" for c in checkpoints))
+    datasets = root / "eval_datasets.json"
+    datasets.write_text(json.dumps([{"name": "pages_val", "images": str(val_json)}]))
+    argv = [str(listing), str(datasets), "--evaluation-root", str(root / "evaluation_results"),
+            "-b", str(EVAL_BATCH), "--num-fid-samples", str(EVAL_FID_SAMPLES), "-d", DEVICE]
+    _count_from_zero(fns)
+    report = {}
+    with warnings.catch_warnings(), _timed_evaluation() as timed:
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        failed = ec.main(ec.build_parser().parse_args(argv), report)
+        _sync()
+        wall = time.perf_counter() - t0
+    launches, shapes = _launches(fns), _path_shapes(fns)
+    if failed:
+        raise AssertionError(f"evaluate_checkpoints failed: {failed}")
+    results = {}
+    for path in sorted((root / "evaluation_results" / "pages_val").glob("*.json")):
+        results[path.stem] = json.loads(path.read_text())
+    names = [Path(c).stem for c in checkpoints]
+    want = {f"{n}_{kind}" for n in names for kind in ("reconstruction", "fid")}
+    if set(results) != want:
+        raise AssertionError(f"evaluate_checkpoints wrote {sorted(results)}, want {sorted(want)}")
+    for key, value in results.items():
+        numbers = [v for v in value.values() if not isinstance(v, str)]
+        if not all(math.isfinite(v) for v in numbers) or ("skipped" in value) == bool(numbers):
+            raise AssertionError(f"evaluate_checkpoints {key}: {value}")
+
+    _count_from_zero(fns)
+    again = {}
+    with _refuse_loading():
+        t0 = time.perf_counter()
+        failed = ec.main(ec.build_parser().parse_args(argv), again)
+        rerun_s = time.perf_counter() - t0
+    if failed or any(set(entry) - {"checkpoint", "dataset"} for entry in again["seconds"]) or \
+            any(_launches(fns).values()):
+        raise AssertionError(f"evaluate_checkpoints' second run: failed {failed}, "
+                             f"{again['seconds']}, launches {_launches(fns)}")
+    fid_s = sum(entry.get("fid", 0.0) for entry in report["seconds"])
+    return {"wall_s": wall, "seconds": report["seconds"], "split": timed.seconds,
+            "reconstructed_images": timed.images,
+            "fid_s": fid_s, "results": results, "launches": launches, "shapes": shapes,
+            "second_run_s": rerun_s}
+
+
+def run_fid_trend(checkpoints_dir: Path, images: Path, fns: dict) -> dict:
+    """`fid_trend` on a run's checkpoints/ at EVAL_TREND, launch counts from 0."""
+    import warnings
+
+    from synthesis_in_style_tpu_torch.scripts import fid_trend
+
+    out = checkpoints_dir.parent / "fid_trend.json"
+    samples, batch = EVAL_TREND
+    _count_from_zero(fns)
+    report = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        rc = fid_trend.main([str(checkpoints_dir), "--images", str(images), "--num-samples",
+                             str(samples), "--batch", str(batch), "--json", str(out),
+                             "-d", DEVICE], report)
+        wall = time.perf_counter() - t0
+    trend = json.loads(out.read_text())
+    snapshots = sorted(p.stem for p in checkpoints_dir.glob("iter_*.pt"))
+    if rc != 0 or list(trend["checkpoints"]) != ["init"] + snapshots or not all(
+            math.isfinite(v) and v >= 0 for v in trend["checkpoints"].values()):
+        raise AssertionError(f"fid_trend returned {rc}: {trend}")
+    return {"wall_s": wall, "seconds": report["seconds"], "trend": trend,
+            "launches": _launches(fns), "shapes": _path_shapes(fns)}
+
+
+def run_results_tools(root: Path, results_json: Path, fns: dict) -> dict:
+    """`evaluate_metrics -p -c`, `extract_results_subset` on its first
+    EVAL_SUBSET_PAGES pages and `plot_metrics` on a sweep's results.json,
+    launch counts from 0 (they launch nothing)."""
+    import contextlib
+    import io
+
+    from synthesis_in_style_tpu_torch.cli import evaluate_metrics, extract_results_subset
+    from synthesis_in_style_tpu_torch.cli import plot_metrics
+
+    _zero(fns)
+    seconds = {}
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        evaluate_metrics.main(evaluate_metrics.build_parser().parse_args(
+            [str(results_json), "-p", "-c"]))
+    seconds["evaluate_metrics"] = time.perf_counter() - t0
+    tables = text.getvalue()
+    if "# Config for best mIoU" not in tables or "## Best Results" not in tables:
+        raise AssertionError("evaluate_metrics -p -c printed no best-mIoU table")
+
+    results = json.loads(results_json.read_text())
+    pages = list(results["runs"][0]["confusion_matrices"])[:EVAL_SUBSET_PAGES]
+    subset = root / "subset.txt"
+    subset.write_text("".join(f"{p}.png\n" for p in pages))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = extract_results_subset.main(extract_results_subset.build_parser().parse_args(
+            [str(results_json), str(subset), "-o", str(root / "subset_results.json")]))
+    seconds["extract_results_subset"] = time.perf_counter() - t0
+    sub = json.loads(out.read_text())
+    if any(set(run["confusion_matrices"]) != set(pages) for run in sub["runs"]):
+        raise AssertionError(f"extract_results_subset kept other pages than {pages}")
+
+    t0 = time.perf_counter()
+    figures = root / "figures"
+    with contextlib.redirect_stdout(io.StringIO()):
+        plot_metrics.main(plot_metrics.build_parser().parse_args(
+            [str(results_json), str(figures), "-c"]))
+    seconds["plot_metrics"] = time.perf_counter() - t0
+    metrics = [k for k in results["runs"][0] if k.startswith("average_")]
+    names = sorted(p.name for p in figures.glob("*.png"))
+    if len(names) != len(metrics) * (len(results["runs"][0]["hyperparams"]) + 1):
+        raise AssertionError(f"plot_metrics wrote {names}")
+    launches = _launches(fns)
+    if any(launches.values()):
+        raise AssertionError(f"the results tools launched {launches}")
+    return {"seconds": seconds, "table_lines": len(tables.splitlines()), "subset_pages": pages,
+            "figures": names, "launches": launches}
+
+
+def check_coco_dataset(coco_gt: Path) -> dict:
+    """COCODataset over a dataset CLI's coco_gt.json through a DataLoader
+    with its collate_func: every image once with its annotations."""
+    from torch.utils.data import DataLoader
+
+    from synthesis_in_style_tpu_torch.data.coco_dataset import COCODataset
+
+    coco = json.loads(coco_gt.read_text())
+    dataset = COCODataset(coco_gt, root=coco_gt.parent)
+    t0 = time.perf_counter()
+    ids, annotations = [], 0
+    for batch in DataLoader(dataset, batch_size=4, collate_fn=COCODataset.collate_func):
+        images = batch["images"]
+        if images.shape[1:] != (CONFIG_256["image_size"], CONFIG_256["image_size"], 3) or \
+                not (images.abs() <= 1).all():
+            raise AssertionError(f"COCODataset images {tuple(images.shape)}")
+        for image_id, anns in zip(batch["image_id"].tolist(), batch["annotations"]):
+            if any(a["image_id"] != image_id for a in anns):
+                raise AssertionError(f"COCODataset: image {image_id} got another's annotations")
+            ids.append(image_id)
+            annotations += len(anns)
+    if sorted(ids) != sorted(im["id"] for im in coco["images"]) or \
+            annotations != len(coco["annotations"]):
+        raise AssertionError(f"COCODataset: images {ids}, {annotations} annotations")
+    return {"images": len(ids), "annotations": annotations, "seconds": time.perf_counter() - t0}
+
+
+def evaluation_phase(root: Path, gan_snapshot: Path, train_pages: Path, ae_snapshot: Path,
+                     trend_checkpoints: Path, trend_images: Path, results_json: Path,
+                     coco_gt: Path, fns: dict) -> dict:
+    """Checkpoint evaluation and results analysis on the earlier phases'
+    outputs: the gates card vs CPU with TF32 off (reconstruction PSNR / SSIM,
+    FID at -b 8 with the same z), then with PyTorch's defaults
+    `evaluate_checkpoints` on the GAN and autoencoder snapshots and the
+    pages' val.json (launch counts from 0, exactly the predicted ones; a
+    second run skips everything), `fid_trend` on a run's checkpoints/, the
+    results CLIs on a sweep's results.json, COCODataset over a coco_gt.json,
+    and the bias-act forward and the blur tail at the path's shapes."""
+    steps = Steps()
+    val_json = write_val_json(train_pages)
+    gates = {"reconstruction": reconstruction_card_vs_cpu(ae_snapshot, val_json),
+             "fid": fid_card_vs_cpu_at_batch(gan_snapshot, val_json)}
+    steps.mark("gates")
+    rate = reconstruction_rate(ae_snapshot, val_json)
+    steps.mark("reconstruction_rate")
+    rec, fid_gate = gates["reconstruction"], gates["fid"]
+    log(f"evaluation gates (TF32 off): reconstruction of {EVAL_CHECK_IMAGES} images card vs CPU "
+        f"|dPSNR| {rec['psnr_abs_diff']:.3g} dB, |dSSIM| {rec['ssim_abs_diff']:.3g} (in float64 "
+        f"{rec['ssim64_abs_diff']:.3g}); FID at {EVAL_CHECK_FID} samples, -b "
+        f"{EVAL_BATCH}: features {fid_gate['features_rel_err']:.3g} of max|ref|, distance card "
+        f"{fid_gate['fid_card']:.6f} / CPU {fid_gate['fid_cpu']:.6f} "
+        f"({fid_gate['fid_rel_diff']:.3g} relative); reconstruction scoring of the val pages on "
+        f"the card at -b {EVAL_BATCH}, no loader: {rate['images']} images in "
+        f"{rate['seconds']:.3f} s = {rate['images_per_s']:.2f} images/s")
+
+    from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
+
+    config = load_config_from_checkpoint(gan_snapshot)
+    size, n_mlp = config["image_size"], config.get("n_mlp", 8)
+    checkpoints = run_evaluate_checkpoints(root, [gan_snapshot, ae_snapshot], val_json, fns)
+    fid_forwards = 2 * math.ceil(EVAL_FID_SAMPLES / EVAL_BATCH)
+    decodes = math.ceil(EVAL_VAL_PAGES / EVAL_BATCH)
+    want = _forward_launches(size, fid_forwards, n_mlp)
+    for name, n in _expected_launches(size, decodes, 0).items():
+        want[name] += n
+    _check_launches("evaluate_checkpoints", checkpoints["launches"], want)
+    steps.mark("evaluate_checkpoints")
+    split = checkpoints["split"]
+    log(f"evaluate_checkpoints (-b {EVAL_BATCH}, --num-fid-samples {EVAL_FID_SAMPLES}, the GAN "
+        f"and the w+ autoencoder snapshots on {EVAL_VAL_PAGES} val pages): whole command "
+        f"{checkpoints['wall_s']:.3f} s; reconstruction of {checkpoints['reconstructed_images']} "
+        f"images {split['reconstruction']:.3f} s (2 loader workers started, the PNGs decoded); FID "
+        f"{checkpoints['fid_s']:.3f} s = generation {split['generation']:.3f} + features "
+        f"{split['features']:.3f} + Frechet {split['frechet']:.3f} s (and loading); results "
+        f"{checkpoints['results']}; second run {checkpoints['second_run_s']:.3f} s, nothing "
+        f"loaded or launched; launches {checkpoints['launches']}")
+
+    trend = run_fid_trend(trend_checkpoints, trend_images, fns)
+    samples, batch = EVAL_TREND
+    _check_launches("fid_trend", trend["launches"], _forward_launches(
+        size, len(trend["seconds"]) * math.ceil(samples / batch), n_mlp))
+    steps.mark("fid_trend")
+    log(f"fid_trend (--num-samples {samples} --batch {batch}) on {trend_checkpoints}: " +
+        ", ".join(f"{k} {v:.4f} ({trend['seconds'][k]:.3f} s)"
+                  for k, v in trend["trend"]["checkpoints"].items())
+        + f"; whole command {trend['wall_s']:.3f} s; launches {trend['launches']}")
+
+    tools = run_results_tools(root, results_json, fns)
+    coco = check_coco_dataset(coco_gt)
+    steps.mark("results_tools")
+    log("results tools on the sweep's results.json: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in tools["seconds"].items())
+        + f" ({len(tools['figures'])} figures, {tools['table_lines']} table lines); "
+        f"COCODataset {coco['images']} images, {coco['annotations']} annotations in "
+        f"{coco['seconds']:.3f} s; launches {tools['launches']}")
+
+    set_tf32(False)
+    try:
+        path_kernels = {name: check_path_kernels(f"evaluation_{name}", entry.pop("shapes"))
+                        for name, entry in (("checkpoints", checkpoints), ("fid_trend", trend))}
+    finally:
+        _defaults()
+    steps.mark("path_kernels")
+    log("evaluation phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                 steps.seconds.items()))
+    return {"gates": gates, "reconstruction_rate": rate, "evaluate_checkpoints": checkpoints,
+            "fid_trend": trend,
+            "results_tools": tools, "coco_dataset": coco, "path_kernels": path_kernels,
+            "predicted_launches": {"evaluate_checkpoints": want}, "seconds": steps.seconds}
 
 
 def flash_only(smi: str, detail_path) -> int:
@@ -5718,13 +6357,359 @@ def flash_only(smi: str, detail_path) -> int:
     return 0
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the phases: each names the phases whose outputs it needs, and returns its
+# result with `paths`: {path: (launch counts, kernels that must have run)}
+
+BIAS_BLUR = ("fused_bias_act", "fused_blur")
+GAN_TRAINING = ("fused_bias_act", "fused_bias_act_bwd", "fused_blur")
+FLASH = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def _defaults() -> None:
+    """PyTorch's defaults: TF32 cuDNN convolutions, float32 matmuls."""
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+class Context:
+    """What the phases share: the temporary root, the launch counters, the
+    kernel rows and detail lists, and each finished phase's result."""
+
+    def __init__(self, root: Path, fns: dict):
+        self.root, self.fns = root, fns
+        self.kernels = {}
+        self.detail = {name: [] for name in (
+            "fused_bias_act", "fused_bias_act_edges", "fused_bias_act_path_shapes",
+            "fused_bias_act_bwd", "fused_blur", "segmented_cc", "autograd", "training_iteration",
+            "flash_attention", "fused_bias_act_path_shapes_swagan")}
+        self.results = {}
+
+    def __getitem__(self, phase: str) -> dict:
+        return self.results[phase]
+
+    def add_kernel(self, name: str, row: dict) -> None:
+        """A kernel's row, its error the larger of this and any earlier one."""
+        old = self.kernels.get(name, {})
+        self.kernels[name] = {**old, **row,
+                              "max_abs_err": max(old.get("max_abs_err", 0.0), row["max_abs_err"])}
+
+    def add_error(self, name: str, err: float) -> None:
+        self.add_kernel(name, {"max_abs_err": err})
+
+
+def phase_kernels(ctx: Context) -> dict:
+    steps = Steps()
+    detail = ctx.detail
+    ctx.add_kernel("fused_bias_act", check_fused_bias_act(detail["fused_bias_act"]))
+    ctx.add_kernel("fused_bias_act_bwd", check_fused_bias_act_bwd(detail["fused_bias_act_bwd"]))
+    ctx.add_kernel("fused_blur", check_fused_blur(detail["fused_blur"]))
+    ctx.add_error("fused_bias_act", check_fused_bias_act_edges(detail["fused_bias_act_edges"]))
+    steps.mark("elementwise")
+    for name, row in check_flash_attention(detail["flash_attention"]).items():
+        ctx.add_kernel(name, row)
+    steps.mark("flash")
+    check_autograd_functions(detail["autograd"])
+    steps.mark("autograd")
+    return {"paths": {}, "seconds": steps.seconds}
+
+
+def phase_training_iterations(ctx: Context) -> dict:
+    steps = Steps()
+    check_training_iteration(ctx.detail["training_iteration"])
+    steps.mark("stylegan2")
+    check_training_iteration(ctx.detail["training_iteration"], SWAGAN_CONFIG)
+    steps.mark("swagan")
+    return {"paths": {}, "seconds": steps.seconds}
+
+
+def phase_discovery(ctx: Context) -> dict:
+    run = make_run_dir(ctx.root)
+    discovery = discovery_phase(run, ctx.fns)
+    return {**discovery, "run": run,
+            "paths": {"discovery": (discovery["launches"], BIAS_BLUR),
+                      "selection": (discovery["selection_launches"], BIAS_BLUR)}}
+
+
+def phase_dataset(ctx: Context) -> dict:
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+
+    steps = Steps()
+    root, fns, run = ctx.root, ctx.fns, ctx["discovery"]["run"]
+    gen = load_generator(run / "checkpoints" / "g_ema.pt", CONFIG_256, device="cuda")
+    write_catalog(run, gen)
+    del gen
+    (run / "creation_config.json").write_text(json.dumps(CREATION_CONFIG))
+    path_masks = reference_check(run)
+    ctx.add_kernel("segmented_cc", check_segmented_cc(ctx.detail["segmented_cc"], path_masks))
+    steps.mark("reference_and_cc")
+    _defaults()
+    drive_path(run, root / "warmup")
+    steps.mark("warmup")
+    _zero(fns)
+    path = drive_path(run, root / "generated_images")
+    launches = _launches(fns)
+    n = check_outputs(root / "generated_images")
+    steps.mark("device_route")
+    stages = stage_times(run, root / "stages")
+    steps.mark("stages")
+    log(f"per batch of {BATCH}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items() if k != "batch"))
+    log(f"dataset path PNG writing: {stages['png_s']:.4f} s a batch over "
+        f"{stages['png_threads']} threads against {stages['png_1thread_s']:.4f} s in one")
+    host_route = host_route_phase(run, root, fns)
+    steps.mark("host_route")
+    log(f"dataset path: {path['written']} images in {path['seconds']:.3f} s = "
+        f"{path['written'] / path['seconds']:.2f} images/s (batch {BATCH}, build_dataset "
+        f"wall time, warm); launches {launches}; {n} PNG pairs checked")
+    return {"path": {**path, "launches": launches, "stages": stages},
+            "host_route": host_route, "generated_images": root / "generated_images",
+            "coco_gt": root / "generated_host" / "coco_gt.json",
+            "paths": {"dataset": (launches, BIAS_BLUR + ("segmented_cc",)),
+                      "dataset_host": (host_route["launches"], ())},
+            "seconds": steps.seconds}
+
+
+def phase_training(ctx: Context) -> dict:
+    steps = Steps()
+    root, fns = ctx.root, ctx.fns
+    pages = write_training_pages(root)
+    run_training_cli(pages, root / "train_warmup", config_name="config_warmup.json")
+    steps.mark("warmup")
+    _zero(fns)
+    fns["fused_bias_act"].shapes.clear()
+    trainer, train_wall = run_training_cli(pages, root / "train")
+    launches = _launches(fns)
+    training_shapes = dict(fns["fused_bias_act"].shapes)
+    losses = check_training_run(trainer, root / "train")
+    iters = trainer.updater.iteration
+    steps.mark("measured")
+    iteration_profile = profile_iteration(trainer)
+    steps.mark("profile")
+    set_tf32(False)
+    try:
+        path_shapes = check_fused_bias_act_path_shapes(
+            ctx.detail["fused_bias_act_path_shapes"], training_shapes, iters)
+    finally:
+        _defaults()
+    for row in ctx.detail["fused_bias_act_path_shapes"]:
+        ctx.add_error("fused_bias_act", row["max_abs_err"])
+    steps.mark("path_shapes")
+    batch = TRAIN_OVERRIDES["batch_size"]
+    training = {"iterations": iters, "batch": batch, "loop_seconds": trainer.seconds,
+                "cli_seconds": train_wall, "iterations_per_s": iters / trainer.seconds,
+                "images_per_s": iters * batch / trainer.seconds, "launches": launches,
+                "losses": losses, "profile": iteration_profile,
+                "fused_bias_act_shapes": path_shapes}
+    log(f"training path (256px, batch {batch}, bf16, {iters} iterations): "
+        f"{training['iterations_per_s']:.3f} iterations/s = {training['images_per_s']:.2f} "
+        f"training images/s (train loop {trainer.seconds:.3f} s, whole CLI {train_wall:.3f} s, "
+        f"warm); launches {launches}")
+    prof = training["profile"]
+    log(f"profiled iteration {prof['iteration']}: wall {prof['wall_s']:.4f} s, device busy "
+        f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
+        "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s" for k in prof["top_kernels"]))
+    log("the port's kernels in that iteration: " + "; ".join(
+        f"{k} x{v['calls']} {v['device_s']:.6f} s" for k, v in prof["port_kernels"].items()))
+    (gan_run,) = (root / "train" / "stylegan2").iterdir()
+    return {**training, "pages": pages,
+            "snapshot": gan_run / "checkpoints" / f"iter_{TRAIN_OVERRIDES['max_iter']:08d}.pt",
+            "paths": {"training": (launches, GAN_TRAINING)}, "seconds": steps.seconds}
+
+
+def phase_segmenter(ctx: Context) -> dict:
+    segmenter = segmenter_phase(ctx.root, ctx["dataset"]["generated_images"], ctx.fns,
+                                ctx.detail["segmented_cc"])
+    page_cc = segmenter["page"]["cc"]
+    ctx.kernels.setdefault("segmented_cc", {"max_abs_err": 0.0}).update(
+        {"page_ms": page_cc["ms"], "page_plain_ms": page_cc["plain_ms"],
+         "page_bound_ms": page_cc["bound_ms"]})
+    return {**segmenter, "results_json": ctx.root / "analyze" / "results.json",
+            "paths": {"segmenter_training": (segmenter["launches"], ()),
+                      "page_inference": (segmenter["page_launches"], ("segmented_cc",)),
+                      "page_host_filter": (segmenter["host_filter_launches"], ())}}
+
+
+def phase_serving(ctx: Context) -> dict:
+    seg = ctx["segmenter"]
+    serving = serving_phase(ctx.root, Path(seg["snapshot"]), Path(seg["pages"]),
+                            Path(seg["pages_gt"]), ctx.fns)
+    return {**serving, "paths": {"page_serving": (serving["cli_launches"], ("segmented_cc",))}}
+
+
+def phase_transunet(ctx: Context) -> dict:
+    seg = ctx["segmenter"]
+    tu = transunet_phase(ctx.root, ctx["dataset"]["generated_images"], Path(seg["pages"]),
+                         Path(seg["pages_gt"]), ctx.fns)
+    flash, xla = tu["training_flash"], tu["training_xla"]
+    return {**tu, "paths": {
+        "transunet_training_flash": (flash["launches"], FLASH),
+        "transunet_training_xla": (xla["launches"], ()),
+        "transunet_float32_step_flash": (flash["float32_step"]["launches"], FLASH),
+        "transunet_float32_step_xla": (xla["float32_step"]["launches"], ()),
+        "transunet_page_inference": (tu["page"]["launches"],
+                                     ("flash_attention_fwd", "segmented_cc"))}}
+
+
+def phase_swagan_emanet(ctx: Context) -> dict:
+    seg = ctx["segmenter"]
+    sw = swagan_emanet_phase(ctx.root, ctx["training"]["pages"], Path(seg["pages"]),
+                             Path(seg["pages_gt"]), ctx.fns, ctx.detail)
+    return {**sw, "paths": {
+        "swagan_training": (sw["training"]["launches"], GAN_TRAINING),
+        "swagan_discovery": (sw["dataset"]["discovery_launches"], BIAS_BLUR),
+        "swagan_dataset": (sw["dataset"]["launches"], BIAS_BLUR + ("segmented_cc",)),
+        "emanet_training": (sw["emanet"]["launches"], ()),
+        "emanet_page_inference": (sw["emanet"]["pages"]["launches"], ("segmented_cc",))}}
+
+
+def phase_dataset_gan(ctx: Context) -> dict:
+    dg = dataset_gan_phase(ctx.root, ctx["training"]["snapshot"],
+                           Path(ctx["swagan_emanet"]["training"]["snapshot"]), ctx.fns)
+    return {**dg, "paths": {f"dataset_gan_{leg}": (dg[leg]["launches"], BIAS_BLUR)
+                            for leg in ("activations", "training", "dataset")}}
+
+
+def phase_capstone(ctx: Context) -> dict:
+    cap = capstone_phase(ctx.root, ctx.fns)
+    return {**cap, "paths": {"capstone_gan_128": (cap["launches_128"], GAN_TRAINING),
+                             "capstone_gan_256": (cap["launches_256"], GAN_TRAINING),
+                             "capstone_chain": (cap["chain_launches"],
+                                                BIAS_BLUR + ("segmented_cc",))}}
+
+
+def phase_autoencoder(ctx: Context) -> dict:
+    ae = autoencoder_phase(ctx.root, ctx["training"]["snapshot"], ctx["training"]["pages"],
+                           ctx.fns)
+    for leg in ("ae_training", "adversarial", "projection"):  # the branch's path shapes
+        for row in ae[leg]["path_kernels"]:
+            ctx.add_error(row["kernel"], row["max_abs_err"])
+    needed = {"ae_training": GAN_TRAINING, "adversarial": GAN_TRAINING,
+              "projection": GAN_TRAINING, "discovery_images": BIAS_BLUR}
+    return {**ae, "paths": {f"autoencoder_{leg}": (ae[leg]["launches"], needed.get(leg, ()))
+                            for leg in AUTOENCODER_LEGS}}
+
+
+def phase_evaluation(ctx: Context) -> dict:
+    cap = ctx["capstone"]
+    fixture = ctx.root / "fixture"
+    ev = evaluation_phase(
+        ctx.root, ctx["training"]["snapshot"], ctx["training"]["pages"],
+        Path(ctx["autoencoder"]["snapshot"]), Path(cap["snapshot_256"]).parent,
+        fixture / "train.json", ctx["segmenter"]["results_json"], ctx["dataset"]["coco_gt"],
+        ctx.fns)
+    for name in ("checkpoints", "fid_trend"):
+        for row in ev["path_kernels"][name]:
+            ctx.add_error(row["kernel"], row["max_abs_err"])
+    return {**ev, "paths": {
+        "evaluation_checkpoints": (ev["evaluate_checkpoints"]["launches"], BIAS_BLUR),
+        "evaluation_fid_trend": (ev["fid_trend"]["launches"], BIAS_BLUR),
+        "evaluation_results_tools": (ev["results_tools"]["launches"], ())}}
+
+
+class Phase:
+    def __init__(self, name: str, title: str, needs: tuple, run, tf32: bool = True):
+        self.name, self.title, self.needs, self.run, self.tf32 = name, title, needs, run, tf32
+
+
+# in the order of the whole run; `title` names the phase in the seconds by phase
+PHASES = (
+    Phase("kernels", "kernel checks", (), phase_kernels, tf32=False),
+    Phase("training_iterations", "training iterations card vs CPU", (),
+          phase_training_iterations, tf32=False),
+    Phase("discovery", "discovery", (), phase_discovery),
+    Phase("dataset", "dataset paths", ("discovery",), phase_dataset, tf32=False),
+    Phase("training", "training", (), phase_training),
+    Phase("segmenter", "segmenter", ("dataset",), phase_segmenter),
+    Phase("serving", "serving", ("segmenter",), phase_serving),
+    Phase("transunet", "transunet", ("dataset", "segmenter"), phase_transunet),
+    Phase("swagan_emanet", "swagan_emanet", ("training", "segmenter"), phase_swagan_emanet),
+    Phase("dataset_gan", "dataset_gan", ("training", "swagan_emanet"), phase_dataset_gan),
+    Phase("capstone", "capstone", (), phase_capstone),
+    Phase("autoencoder", "autoencoder", ("training",), phase_autoencoder),
+    Phase("evaluation", "evaluation",
+          ("dataset", "training", "segmenter", "capstone", "autoencoder"), phase_evaluation),
+)
+
+
+def resolve_phases(only=None) -> list:
+    """The phases to run, in PHASES order: all of them, or `only` and every
+    phase they need, transitively."""
+    by_name = {p.name: p for p in PHASES}
+    if not only:
+        return list(PHASES)
+    wanted, todo = set(), list(only)
+    while todo:
+        name = todo.pop()
+        if name not in wanted:
+            wanted.add(name)
+            todo.extend(by_name[name].needs)
+    return [p for p in PHASES if p.name in wanted]
+
+
+def check_paths(phase: str, paths: dict) -> None:
+    """Every kernel a path needs was launched on it."""
+    for path_name, (launches, needed) in paths.items():
+        for name in needed:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the {path_name} path "
+                                     f"({phase} phase)")
+
+
+FLASH_TPU = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (jax 0.9.0), reached "
+             "from synthesis_in_style_tpu/models/trans_u_net.py:300")
+KERNEL_SOURCES = {
+    "fused_bias_act": ("csrc/fused_bias_act.cu",
+                       "synthesis_in_style_tpu/ops/pallas/fused_bias_act.py:61"),
+    "fused_bias_act_bwd": ("csrc/fused_bias_act.cu",
+                           "synthesis_in_style_tpu/ops/pallas/fused_bias_act.py:87"),
+    "fused_blur": ("csrc/fused_blur.cu", "synthesis_in_style_tpu/ops/pallas/fused_blur.py:223"),
+    "segmented_cc": ("csrc/segmented_cc.cu",
+                     "synthesis_in_style_tpu/ops/pallas/segmented_cc.py:158"),
+    "flash_attention_fwd": ("csrc/flash_attention_f32.cuh", FLASH_TPU.format(758)),
+    "flash_attention_bwd": ("csrc/flash_attention_f32.cuh",
+                            FLASH_TPU.format("1121 (bwd_dkv) and :1456 (bwd_dq)"))}
+ROW_EXTRAS = ("fma_bound_ms", "library_kernels", "bf16_ms", "bf16_device_ms", "bf16_bound_ms",
+              "bf16_plain_ms", "bf16_library_ms", "bf16_source", "page_ms", "page_plain_ms",
+              "page_bound_ms")
+
+
+def kernel_rows(ctx: Context, phases: list) -> list:
+    """The `kernels` line: each kernel's numbers and its launches by path."""
+    rows = []
+    for name, (src, tpu) in KERNEL_SOURCES.items():
+        k = ctx.kernels.get(name, {})
+        by_path = {path: launches[name] for p in phases
+                   for path, (launches, _) in ctx[p.name]["paths"].items()}
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"synthesis_in_style_tpu_torch/{src}", "replaces": tpu,
+                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                     "max_abs_err": k.get("max_abs_err"),
+                     **{key: k.get(key) for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "library_ms")},
+                     **{key: k[key] for key in ROW_EXTRAS if key in k}})
+        if "bf16_ms" in k:
+            log(f"{name} at the main shape: float32 {k['ms']:.4f} ms (device "
+                f"{k['device_ms']}) against a bound of {k['bound_ms']:.4f} "
+                f"({k['ms'] / k['bound_ms']:.2f}x); bfloat16 {k['bf16_ms']:.4f} ms (device "
+                f"{k['bf16_device_ms']}) against {k['bf16_bound_ms']:.4f} "
+                f"({k['bf16_ms'] / k['bf16_bound_ms']:.2f}x)")
+    return rows
+
+
+def main(argv=None) -> int:
+    names = [p.name for p in PHASES]
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", type=Path, default=None,
                         help="write every measured row to this JSON file")
-    parser.add_argument("--only", choices=["flash"], default=None,
-                        help="run this kernel check alone and drive no path")
-    cli = parser.parse_args()
+    parser.add_argument("--only", nargs="+", choices=["flash"] + names, default=None,
+                        metavar="PHASE",
+                        help="run these phases and the phases they need (with their gates and "
+                        "launch checks), or `flash`: the flash kernel check alone; phases: "
+                        + ", ".join(names))
+    cli = parser.parse_args(argv)
+    if cli.only and "flash" in cli.only and len(cli.only) > 1:
+        parser.error("--only flash runs alone")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5740,286 +6725,61 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    phases = [("build", time.perf_counter())]  # (phase, when it ended)
-
     set_tf32(False)  # parity phases compare in full float32
-    if cli.only == "flash":
+    if cli.only == ["flash"]:
         return flash_only(smi, cli.detail)
-    detail = {name: [] for name in ("fused_bias_act", "fused_bias_act_edges",
-                                    "fused_bias_act_path_shapes", "fused_bias_act_bwd",
-                                    "fused_blur", "segmented_cc", "autograd",
-                                    "training_iteration", "flash_attention",
-                                    "fused_bias_act_path_shapes_swagan")}
-    kernels = {"fused_bias_act": check_fused_bias_act(detail["fused_bias_act"]),
-               "fused_bias_act_bwd": check_fused_bias_act_bwd(detail["fused_bias_act_bwd"]),
-               "fused_blur": check_fused_blur(detail["fused_blur"])}
-    edge_err = check_fused_bias_act_edges(detail["fused_bias_act_edges"])
-    kernels["fused_bias_act"]["max_abs_err"] = max(kernels["fused_bias_act"]["max_abs_err"],
-                                                   edge_err)
-    kernels.update(check_flash_attention(detail["flash_attention"]))
-    check_autograd_functions(detail["autograd"])
-    phases.append(("kernel checks", time.perf_counter()))
-    check_training_iteration(detail["training_iteration"])
-    check_training_iteration(detail["training_iteration"], SWAGAN_CONFIG)
-    phases.append(("training iterations card vs CPU", time.perf_counter()))
-    fns = counters()
 
+    phases = resolve_phases(cli.only)
+    log("phases: " + ", ".join(p.name for p in phases))
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    try:
-        run = make_run_dir(root)
-        # cluster discovery with PyTorch's defaults (TF32 cuDNN convolutions,
-        # float32 matmuls); its catalog feeds the dataset phase
-        set_tf32(True)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        discovery = discovery_phase(run, fns)
-        phases.append(("discovery", time.perf_counter()))
-        set_tf32(False)
-        from synthesis_in_style_tpu_torch.models.factory import load_generator
+    ctx = Context(root, counters())
+    phase_seconds, step_seconds = {}, {}
+    start = time.perf_counter()
 
-        gen = load_generator(run / "checkpoints" / "g_ema.pt", CONFIG_256, device="cuda")
-        write_catalog(run, gen)
-        del gen
-        (run / "creation_config.json").write_text(json.dumps(CREATION_CONFIG))
-        path_masks = reference_check(run)
-        kernels["segmented_cc"] = check_segmented_cc(detail["segmented_cc"], path_masks)
-
-        # the paths run with PyTorch's defaults: TF32 cuDNN convolutions,
-        # float32 matmuls
-        set_tf32(True)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        drive_path(run, root / "warmup")
-        for fn in fns.values():
-            fn.launches = 0
-        path = drive_path(run, root / "generated_images")
-        dataset_launches = {name: fn.launches for name, fn in fns.items()}
-        n = check_outputs(root / "generated_images")
-        with _one_png_thread():
-            path_1thread = drive_path(run, root / "generated_images_1thread")
-        stages = stage_times(run, root / "stages")
-        log(f"per batch of {BATCH}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in stages.items() if k != "batch"))
-        log(f"dataset path PNG writing: {stages['png_s']:.4f} s a batch over "
-            f"{stages['png_threads']} threads against {stages['png_1thread_s']:.4f} s in one; "
-            f"labelled images/s {path['written'] / path['seconds']:.2f} against "
-            f"{path_1thread['written'] / path_1thread['seconds']:.2f} with the one-thread "
-            "writer (build_dataset wall time, warm)")
-        host_route = host_route_phase(run, root, fns)
-        phases.append(("dataset paths", time.perf_counter()))
-
-        pages = write_training_pages(root)
-        run_training_cli(pages, root / "train_warmup")
-        for fn in fns.values():
-            fn.launches = 0
-        fns["fused_bias_act"].shapes.clear()
-        trainer, train_wall = run_training_cli(pages, root / "train")
-        training_launches = {name: fn.launches for name, fn in fns.items()}
-        training_shapes = dict(fns["fused_bias_act"].shapes)
-        losses = check_training_run(trainer, root / "train")
-        iters = trainer.updater.iteration
-        step_seconds = {}
-        run_training_cli(pages, root / "train_timed", step_seconds)
-        iteration_profile = profile_iteration(trainer)
-        phases.append(("training", time.perf_counter()))
-
-        # the segmenter path on the dataset path's PNG pairs
-        segmenter = segmenter_phase(root, root / "generated_images", fns,
-                                    detail["segmented_cc"])
-        phases.append(("segmenter", time.perf_counter()))
-        # whole-page serving on that phase's snapshot and pages
-        serving = serving_phase(root, Path(segmenter["snapshot"]), Path(segmenter["pages"]),
-                                Path(segmenter["pages_gt"]), fns)
-        phases.append(("serving", time.perf_counter()))
-        # TransUNet on the same PNG pairs and pages: the network card vs CPU,
-        # training with attention_impl flash and xla, flash page inference
-        transunet = transunet_phase(root, root / "generated_images", Path(segmenter["pages"]),
-                                    Path(segmenter["pages_gt"]), fns)
-        phases.append(("transunet", time.perf_counter()))
-        # the shipped swagan_* path: SWAGAN training, discovery and the
-        # dataset CLI on its snapshot, EMANet training and pages
-        swagan_emanet = swagan_emanet_phase(root, pages, Path(segmenter["pages"]),
-                                            Path(segmenter["pages_gt"]), fns, detail)
-        phases.append(("swagan_emanet", time.perf_counter()))
-        # the DatasetGAN branch on the training path's and the SWAGAN snapshots
-        (gan_run,) = (root / "train" / "stylegan2").iterdir()
-        dataset_gan = dataset_gan_phase(
-            root, gan_run / "checkpoints" / f"iter_{TRAIN_OVERRIDES['max_iter']:08d}.pt",
-            Path(swagan_emanet["training"]["snapshot"]), fns)
-        phases.append(("dataset_gan", time.perf_counter()))
-        # the capstone recipe's legs: fixture, 128px GAN (resumed), 256px
-        # GAN (warm-started), the five-leg chain
-        capstone = capstone_phase(root, fns)
-        phases.append(("capstone", time.perf_counter()))
-        # the autoencoder and GAN-inversion branch on the training path's
-        # snapshot and pages
-        autoencoder = autoencoder_phase(
-            root, gan_run / "checkpoints" / f"iter_{TRAIN_OVERRIDES['max_iter']:08d}.pt", pages,
-            fns)
-        phases.append(("autoencoder", time.perf_counter()))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    path_shapes = check_fused_bias_act_path_shapes(detail["fused_bias_act_path_shapes"],
-                                                   training_shapes, iters)
-    kernels["fused_bias_act"]["max_abs_err"] = max(
-        [kernels["fused_bias_act"]["max_abs_err"]]
-        + [r["max_abs_err"] for r in detail["fused_bias_act_path_shapes"]])
-    for path_name, launches, needed in (
-            ("discovery", discovery["launches"], ("fused_bias_act", "fused_blur")),
-            ("selection", discovery["selection_launches"], ("fused_bias_act", "fused_blur")),
-            ("dataset", dataset_launches, ("fused_bias_act", "fused_blur", "segmented_cc")),
-            ("training", training_launches, ("fused_bias_act", "fused_bias_act_bwd",
-                                             "fused_blur")),
-            ("page_inference", segmenter["page_launches"], ("segmented_cc",)),
-            ("page_serving", serving["cli_launches"], ("segmented_cc",)),
-            ("capstone_gan_128", capstone["launches_128"], ("fused_bias_act",
-                                                             "fused_bias_act_bwd", "fused_blur")),
-            ("capstone_gan_256", capstone["launches_256"], ("fused_bias_act",
-                                                             "fused_bias_act_bwd", "fused_blur")),
-            ("capstone_chain", capstone["chain_launches"], ("fused_bias_act", "fused_blur",
-                                                            "segmented_cc")),
-            ("transunet_training_flash", transunet["training_flash"]["launches"],
-             ("flash_attention_fwd", "flash_attention_bwd")),
-            ("transunet_float32_step_flash",
-             transunet["training_flash"]["float32_step"]["launches"],
-             ("flash_attention_fwd", "flash_attention_bwd")),
-            ("transunet_page_inference", transunet["page"]["launches"],
-             ("flash_attention_fwd", "segmented_cc")),
-            ("swagan_training", swagan_emanet["training"]["launches"],
-             ("fused_bias_act", "fused_bias_act_bwd", "fused_blur")),
-            ("swagan_discovery", swagan_emanet["dataset"]["discovery_launches"],
-             ("fused_bias_act", "fused_blur")),
-            ("swagan_dataset", swagan_emanet["dataset"]["launches"],
-             ("fused_bias_act", "fused_blur", "segmented_cc")),
-            ("emanet_page_inference", swagan_emanet["emanet"]["pages"]["launches"],
-             ("segmented_cc",)),
-            ("dataset_gan_activations", dataset_gan["activations"]["launches"],
-             ("fused_bias_act", "fused_blur")),
-            ("dataset_gan_training", dataset_gan["training"]["launches"],
-             ("fused_bias_act", "fused_blur")),
-            ("dataset_gan_dataset", dataset_gan["dataset"]["launches"],
-             ("fused_bias_act", "fused_blur")),
-            *((f"autoencoder_{leg}", autoencoder[leg]["launches"],
-               ("fused_bias_act", "fused_bias_act_bwd", "fused_blur"))
-              for leg in ("ae_training", "adversarial", "projection")),
-            ("autoencoder_discovery_images", autoencoder["discovery_images"]["launches"],
-             ("fused_bias_act", "fused_blur"))):
-        for name in needed:
-            if launches[name] <= 0:
-                raise AssertionError(f"kernel {name} was not launched on the {path_name} path")
-    log(f"dataset path: {path['written']} images in {path['seconds']:.3f} s = "
-        f"{path['written'] / path['seconds']:.2f} images/s (batch {BATCH}, build_dataset "
-        f"wall time, warm); launches {dataset_launches}; {n} PNG pairs checked")
-    batch = TRAIN_OVERRIDES["batch_size"]
-    training = {"iterations": iters, "batch": batch, "loop_seconds": trainer.seconds,
-                "cli_seconds": train_wall, "iterations_per_s": iters / trainer.seconds,
-                "images_per_s": iters * batch / trainer.seconds, "launches": training_launches,
-                "losses": losses,
-                "step_seconds_mean": {k: sum(v) / len(v) for k, v in step_seconds.items()},
-                "step_calls": {k: len(v) for k, v in step_seconds.items()},
-                "profile": iteration_profile, "fused_bias_act_shapes": path_shapes}
-    log(f"training path (256px, batch {batch}, bf16, {iters} iterations): "
-        f"{training['iterations_per_s']:.3f} iterations/s = {training['images_per_s']:.2f} "
-        f"training images/s (train loop {trainer.seconds:.3f} s, whole CLI {train_wall:.3f} s, "
-        f"warm); launches {training_launches}")
-    log("seconds per step kind (mean per call, synchronized): " + ", ".join(
-        f"{k} {v:.4f} x{training['step_calls'][k]}"
-        for k, v in training["step_seconds_mean"].items()))
-    prof = training["profile"]
-    log(f"profiled iteration {prof['iteration']}: wall {prof['wall_s']:.4f} s, device busy "
-        f"{prof['device_busy_s']:.4f} s ({prof['device_busy_share']:.3f}); top kernels: " +
-        "; ".join(f"{k['name']} x{k['calls']} {k['device_s']:.4f} s" for k in prof["top_kernels"]))
-    log("the port's kernels in that iteration: " + "; ".join(
-        f"{k} x{v['calls']} {v['device_s']:.6f} s" for k, v in prof["port_kernels"].items()))
-
-    for leg in ("ae_training", "adversarial", "projection"):  # the branch's path shapes
-        for row in autoencoder[leg]["path_kernels"]:
-            kernels[row["kernel"]]["max_abs_err"] = max(kernels[row["kernel"]]["max_abs_err"],
-                                                        row["max_abs_err"])
-    page_cc = segmenter["page"]["cc"]
-    kernels["segmented_cc"].update({"page_ms": page_cc["ms"], "page_plain_ms": page_cc["plain_ms"],
-                                    "page_bound_ms": page_cc["bound_ms"]})
-
-    flash_tpu = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} (jax 0.9.0), reached "
-                 "from synthesis_in_style_tpu/models/trans_u_net.py:300")
-    sources = {"fused_bias_act": ("csrc/fused_bias_act.cu",
-                                  "synthesis_in_style_tpu/ops/pallas/fused_bias_act.py:61"),
-               "fused_bias_act_bwd": ("csrc/fused_bias_act.cu",
-                                      "synthesis_in_style_tpu/ops/pallas/fused_bias_act.py:87"),
-               "fused_blur": ("csrc/fused_blur.cu",
-                              "synthesis_in_style_tpu/ops/pallas/fused_blur.py:223"),
-               "segmented_cc": ("csrc/segmented_cc.cu",
-                                "synthesis_in_style_tpu/ops/pallas/segmented_cc.py:158"),
-               "flash_attention_fwd": ("csrc/flash_attention_f32.cuh", flash_tpu.format(758)),
-               "flash_attention_bwd": ("csrc/flash_attention_f32.cuh",
-                                       flash_tpu.format("1121 (bwd_dkv) and :1456 (bwd_dq)"))}
-    rows = []
-    for name, (src, tpu) in sources.items():
-        k = kernels[name]
-        by_path = {"discovery": discovery["launches"][name],
-                   "selection": discovery["selection_launches"][name],
-                   "dataset": dataset_launches[name], "training": training_launches[name],
-                   "segmenter_training": segmenter["launches"][name],
-                   "page_inference": segmenter["page_launches"][name],
-                   "dataset_host": host_route["launches"][name],
-                   "page_host_filter": segmenter["host_filter_launches"][name],
-                   "page_serving": serving["cli_launches"][name],
-                   "capstone_gan_128": capstone["launches_128"][name],
-                   "capstone_gan_256": capstone["launches_256"][name],
-                   "capstone_chain": capstone["chain_launches"][name],
-                   "transunet_training_flash": transunet["training_flash"]["launches"][name],
-                   "transunet_training_xla": transunet["training_xla"]["launches"][name],
-                   "transunet_float32_step_flash":
-                       transunet["training_flash"]["float32_step"]["launches"][name],
-                   "transunet_float32_step_xla":
-                       transunet["training_xla"]["float32_step"]["launches"][name],
-                   "transunet_page_inference": transunet["page"]["launches"][name],
-                   "swagan_training": swagan_emanet["training"]["launches"][name],
-                   "swagan_discovery": swagan_emanet["dataset"]["discovery_launches"][name],
-                   "swagan_dataset": swagan_emanet["dataset"]["launches"][name],
-                   "emanet_training": swagan_emanet["emanet"]["launches"][name],
-                   "emanet_page_inference": swagan_emanet["emanet"]["pages"]["launches"][name],
-                   **{f"dataset_gan_{leg}": dataset_gan[leg]["launches"][name]
-                      for leg in ("activations", "training", "dataset")},
-                   **{f"autoencoder_{leg}": autoencoder[leg]["launches"][name]
-                      for leg in AUTOENCODER_LEGS}}
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"synthesis_in_style_tpu_torch/{src}",
-                     "replaces": tpu,
-                     "launches": sum(by_path.values()), "launches_by_path": by_path,
-                     "max_abs_err": k["max_abs_err"],
-                     "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
-                     "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
-                     **{key: k[key] for key in ("fma_bound_ms", "library_kernels",
-                                                "bf16_ms", "bf16_device_ms", "bf16_bound_ms",
-                                                "bf16_plain_ms", "bf16_library_ms",
-                                                "bf16_source",
-                                                "page_ms", "page_plain_ms", "page_bound_ms")
-                        if key in k}})
-        if "bf16_ms" in k:
-            log(f"{name} at the main shape: float32 {k['ms']:.4f} ms (device "
-                f"{k['device_ms']}) against a bound of {k['bound_ms']:.4f} "
-                f"({k['ms'] / k['bound_ms']:.2f}x); bfloat16 {k['bf16_ms']:.4f} ms (device "
-                f"{k['bf16_device_ms']}) against {k['bf16_bound_ms']:.4f} "
-                f"({k['bf16_ms'] / k['bf16_bound_ms']:.2f}x)")
-    phase_seconds = {name: end - start for (_, start), (name, end) in zip(phases, phases[1:])}
-    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items()) +
-        f"; whole script after the build {phases[-1][1] - phases[0][1]:.1f}")
-    if cli.detail is not None:
+    def write_detail(rows=None) -> None:
+        """The detail file as it stands (rewritten after every phase, so a
+        failed run keeps what its finished phases measured)."""
+        if cli.detail is None:
+            return
         cli.detail.parent.mkdir(parents=True, exist_ok=True)
         cli.detail.write_text(json.dumps(
-            {"card": smi, "kernels": rows, "detail": detail, "phase_seconds": phase_seconds,
-             "path": {**path, "launches": dataset_launches, "stages": stages,
-                      "one_thread_png": path_1thread},
-             "host_route": host_route, "discovery": discovery,
-             "training": training, "segmenter": segmenter, "serving": serving,
-             "capstone": capstone, "transunet": transunet, "swagan_emanet": swagan_emanet,
-             "dataset_gan": dataset_gan, "autoencoder": autoencoder},
+            {"card": smi, "kernels": rows, "detail": ctx.detail, "phase_seconds": phase_seconds,
+             "step_seconds": step_seconds,
+             "phases": {name: {k: v for k, v in result.items() if k != "paths"}
+                        for name, result in ctx.results.items()}},
             indent=1, default=str))
+
+    try:
+        for phase in phases:
+            if phase.tf32:
+                _defaults()
+            else:
+                set_tf32(False)
+            t0 = time.perf_counter()
+            ctx.results[phase.name] = phase.run(ctx)
+            phase_seconds[phase.title] = time.perf_counter() - t0
+            step_seconds[phase.name] = ctx.results[phase.name].get("seconds", {})
+            check_paths(phase.name, ctx.results[phase.name]["paths"])
+            steps = step_seconds[phase.name]
+            log(f"phase {phase.name}: {phase_seconds[phase.title]:.1f} s" + (
+                " (" + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()
+                                 if isinstance(v, float)) + ")" if isinstance(steps, dict)
+                else ""))
+            write_detail()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rows = kernel_rows(ctx, phases)
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_seconds.items()) +
+        f"; whole script after the build {time.perf_counter() - start:.1f}")
+    write_detail(rows)
     log(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    if cli.only:
+        print(json.dumps({"ok": True, "only": [p.name for p in phases]}))
+    else:
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -35,11 +35,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 from pathlib import Path
 
 import torch
 
+from synthesis_in_style_tpu_torch.cli.compat import (
+    add_torch_compat_args,
+    check_single_process,
+    warn_ignored_torch_args,
+)
 from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import find_latest_resume, resolve_log_dir
 from synthesis_in_style_tpu_torch.core.config import (
     load_config_file,
@@ -82,9 +86,8 @@ def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
     if config.get("wandb_project_name"):
         raise _not_ported("wandb logging")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or config.get("local_rank") is not None or \
-            config.get("mpi_backend"):
-        raise _not_ported("training in more than one process")
+    check_single_process(config.get("local_rank"))
+    warn_ignored_torch_args(config)
 
 
 def get_data_loader(json_path: Path, config: dict, args: argparse.Namespace,
@@ -196,12 +199,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler Chrome trace of the run to "
                         "<dir>/trace.json")
-    parser.add_argument("-d", "--device", default="cuda",
-                        help="torch device to train on (default cuda)")
-    parser.add_argument("--local_rank", type=int, default=None,
-                        help="more than one process is not ported yet")
-    parser.add_argument("--mpi-backend", default=None, choices=["nccl", "gloo"],
-                        help="more than one process is not ported yet")
+    add_torch_compat_args(parser)
     return parser
 
 

@@ -37,6 +37,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from synthesis_in_style_tpu_torch.cli.compat import (
+    add_torch_compat_args,
+    check_single_process,
+    warn_ignored_torch_args,
+)
 from synthesis_in_style_tpu_torch.core.config import (
     load_config_file,
     load_config_from_checkpoint,
@@ -114,6 +119,8 @@ def make_optimizer(params, config: dict) -> GANOptimizer:
 
 def main(args: argparse.Namespace) -> Trainer:
     """Train as configured; returns the finished Trainer."""
+    check_single_process(getattr(args, "local_rank", None))
+    warn_ignored_torch_args(args)
     config = load_config_from_checkpoint(args.autoencoder_checkpoint, args.config)
     if args.overwrite_config and args.config:
         config.update(load_config_file(args.config))
@@ -222,8 +229,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-ln", "--log-name", default="training")
     parser.add_argument("--debug", action="store_true", default=False,
                         help="no loader worker processes")
-    parser.add_argument("-d", "--device", default="cuda",
-                        help="torch device to train on (default cuda)")
+    add_torch_compat_args(parser)
     return parser
 
 

@@ -47,6 +47,11 @@ from typing import Callable, Dict, Tuple, Union
 import numpy as np
 import torch
 
+from synthesis_in_style_tpu_torch.cli.compat import (
+    add_torch_compat_args,
+    check_single_process,
+    warn_ignored_torch_args,
+)
 from synthesis_in_style_tpu_torch.core.config import (
     load_config_file,
     load_config_from_checkpoint,
@@ -127,9 +132,8 @@ def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
     if config.get("wandb_project_name"):
         raise _not_ported("wandb logging")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or config.get("local_rank") or \
-            config.get("mpi_backend"):
-        raise _not_ported("training in more than one process")
+    check_single_process(config.get("local_rank"))
+    warn_ignored_torch_args(config)
 
 
 def find_latest_resume(config: dict, log_dir: Path) -> int:
@@ -323,12 +327,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler Chrome trace of the run to "
                         "<dir>/trace.json")
-    parser.add_argument("-d", "--device", default="cuda",
-                        help="torch device to train on (default cuda)")
-    parser.add_argument("--local_rank", type=int, default=None,
-                        help="more than one process is not ported yet")
-    parser.add_argument("--mpi-backend", default=None, choices=["nccl", "gloo"],
-                        help="more than one process is not ported yet")
+    add_torch_compat_args(parser)
     return parser
 
 

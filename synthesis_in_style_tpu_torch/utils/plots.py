@@ -6,7 +6,7 @@ data range written at the axes."""
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 from PIL import Image, ImageDraw
@@ -114,4 +114,58 @@ def heatmap(matrix: np.ndarray, path: Path) -> None:
     draw = ImageDraw.Draw(image)
     draw.text((WIDTH - 2 * MARGIN + 28, MARGIN), f"{hi:.3g}", fill=BLACK)
     draw.text((WIDTH - 2 * MARGIN + 28, HEIGHT - MARGIN - 10), f"{lo:.3g}", fill=BLACK)
+    image.save(path)
+
+
+PALETTE = (BLUE, ORANGE, (44, 160, 44), (214, 39, 40), (148, 103, 189), (140, 86, 75))
+
+
+def boxplot(groups: Sequence[Sequence[float]], path: Path,
+            positions: Optional[Sequence[float]] = None,
+            colours: Optional[Sequence[Tuple[int, int, int]]] = None,
+            tick_positions: Sequence[float] = (), tick_labels: Sequence[str] = (),
+            x_label: str = "", y_label: str = "", title: str = "") -> None:
+    """One box per group (quartiles, the median line, whiskers to the most
+    extreme values within 1.5 IQR of the box, points beyond them) at its
+    position (1, 2, ... by default)."""
+    groups = [np.asarray(g, np.float64).reshape(-1) for g in groups]
+    positions = list(positions) if positions is not None else list(range(1, len(groups) + 1))
+    colours = list(colours) if colours is not None else [BLUE] * len(groups)
+    values = np.concatenate([g for g in groups if g.size] or [np.zeros(1)])
+    lo, hi = float(values.min()), float(values.max())
+    pad = 0.05 * (hi - lo if hi > lo else 1.0)
+    lo, hi = lo - pad, hi + pad
+    x_lo, x_hi = min(positions) - 1, max(positions) + 1
+    image, draw = _canvas()
+    half = 0.4 * (WIDTH - 2 * MARGIN) / max(1, x_hi - x_lo)
+    for group, pos, colour in zip(groups, positions, colours):
+        if not group.size:
+            continue
+        q1, med, q3 = np.percentile(group, (25, 50, 75))
+        reach = 1.5 * (q3 - q1)
+        inside = group[(group >= q1 - reach) & (group <= q3 + reach)]
+        w_lo, w_hi = float(inside.min()), float(inside.max())
+        x = float(_to_px(pos, x_lo, x_hi, MARGIN, WIDTH - MARGIN))
+        y = lambda v: float(_to_px(v, lo, hi, HEIGHT - MARGIN, MARGIN))  # noqa: E731
+        draw.rectangle([x - half, y(q3), x + half, y(q1)], outline=colour)
+        draw.line([(x - half, y(med)), (x + half, y(med))], fill=ORANGE if colour == BLUE
+                  else BLACK)
+        draw.line([(x, y(q3)), (x, y(w_hi))], fill=colour)
+        draw.line([(x, y(q1)), (x, y(w_lo))], fill=colour)
+        draw.line([(x - half / 2, y(w_hi)), (x + half / 2, y(w_hi))], fill=colour)
+        draw.line([(x - half / 2, y(w_lo)), (x + half / 2, y(w_lo))], fill=colour)
+        for v in group[(group < w_lo) | (group > w_hi)]:
+            draw.ellipse([x - 2, y(v) - 2, x + 2, y(v) + 2], outline=colour)
+    for pos, label in zip(tick_positions, tick_labels):
+        x = float(_to_px(pos, x_lo, x_hi, MARGIN, WIDTH - MARGIN))
+        draw.line([(x, HEIGHT - MARGIN), (x, HEIGHT - MARGIN + 4)], fill=BLACK)
+        draw.text((x - 3 * len(str(label)), HEIGHT - MARGIN + 6), str(label), fill=BLACK)
+    draw.text((4, MARGIN), f"{hi:.3g}", fill=BLACK)
+    draw.text((4, HEIGHT - MARGIN - 10), f"{lo:.3g}", fill=BLACK)
+    if x_label:
+        draw.text((WIDTH // 2 - 3 * len(x_label), HEIGHT - MARGIN + 22), x_label, fill=BLACK)
+    if y_label:
+        draw.text((4, HEIGHT // 2), y_label, fill=BLACK)
+    if title:
+        draw.text((WIDTH // 2 - 3 * len(title), MARGIN // 2 - 6), title, fill=BLACK)
     image.save(path)

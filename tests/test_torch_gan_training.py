@@ -190,9 +190,13 @@ def test_cli_trains_snapshots_and_feeds_the_dataset_path(tmp_path):
     assert state.g_optimizer.count == snap["generator_optimizer"]["state"][0]["step"] + 3
 
 
-@pytest.mark.parametrize("extra", [["--wandb-project-name", "p"], ["--mpi-backend", "gloo"],
+@pytest.mark.parametrize("extra", [["--wandb-project-name", "p"],
+                                   ["--mpi-backend", "gloo", "--local_rank", "1"],
                                    ["--local_rank", "1"]])
 def test_cli_raises_on_what_is_not_ported(tmp_path, extra):
+    """wandb, and a positive rank with or without a backend (more than one
+    process, ROADMAP item 11); `--mpi-backend` alone and `--local_rank 0`
+    are the single-process run (tests/test_torch_cli_flags.py)."""
     data = _write_run_inputs(tmp_path, n_images=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run_cli(data, tmp_path / "logs", *extra)

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor any module of the JAX package, nor
-OpenCV or matplotlib: every module of synthesis_in_style_tpu_torch imports
-in a fresh interpreter where `import jax`, `import cv2` and `import
-matplotlib` fail, and leaves no synthesis_in_style_tpu module loaded."""
+OpenCV, matplotlib or pandas: every module of synthesis_in_style_tpu_torch
+imports in a fresh interpreter where `import jax`, `import cv2`, `import
+matplotlib` and `import pandas` fail, and leaves no synthesis_in_style_tpu
+module loaded."""
 
 import re
 import subprocess
@@ -15,6 +16,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["cv2"] = None  # the card machine has no OpenCV
 sys.modules["matplotlib"] = None  # nor matplotlib
+sys.modules["pandas"] = None  # nor pandas
 import synthesis_in_style_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
@@ -115,16 +117,30 @@ DATASET_GAN_MODULES = (
     "synthesis_in_style_tpu_torch.cli.create_dataset_for_activation_classification",
 )
 
+# the evaluation family: PSNR / SSIM, checkpoint evaluation, the FID
+# trend, the results tools, the COCO dataset and the torch-era flags
+EVALUATION_MODULES = (
+    "synthesis_in_style_tpu_torch.evaluation.psnr_ssim",
+    "synthesis_in_style_tpu_torch.evaluation.results_analysis",
+    "synthesis_in_style_tpu_torch.scripts.evaluate_checkpoints",
+    "synthesis_in_style_tpu_torch.scripts.fid_trend",
+    "synthesis_in_style_tpu_torch.cli.evaluate_metrics",
+    "synthesis_in_style_tpu_torch.cli.extract_results_subset",
+    "synthesis_in_style_tpu_torch.cli.plot_metrics",
+    "synthesis_in_style_tpu_torch.cli.compat",
+    "synthesis_in_style_tpu_torch.data.coco_dataset",
+)
+
 _IMPORT_LINE = re.compile(
-    r"^\s*(?:import|from)\s+(cv2|jax|matplotlib|synthesis_in_style_tpu)(?:\s|\.|$)")
+    r"^\s*(?:import|from)\s+(cv2|jax|matplotlib|pandas|synthesis_in_style_tpu)(?:\s|\.|$)")
 
 
 @pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES + CAPSTONE_MODULES
                          + SWAGAN_EMANET_MODULES + DATASET_GAN_MODULES
-                         + AUTOENCODER_MODULES)
+                         + AUTOENCODER_MODULES + EVALUATION_MODULES)
 def test_host_route_modules_import_no_cv2_and_no_jax(module):
-    """No import line of the module names cv2, jax, matplotlib or the JAX
-    package, and it imports where they are blocked."""
+    """No import line of the module names cv2, jax, matplotlib, pandas or
+    the JAX package, and it imports where they are blocked."""
     root = Path(__file__).resolve().parents[1]
     source = root / (module.replace(".", "/") + ".py")
     if not source.exists():  # a package
@@ -132,7 +148,7 @@ def test_host_route_modules_import_no_cv2_and_no_jax(module):
     bad = [line for line in source.read_text().splitlines() if _IMPORT_LINE.match(line)]
     assert not bad, bad
     script = ("import sys; sys.modules['jax'] = None; sys.modules['cv2'] = None\n"
-              "sys.modules['matplotlib'] = None\n"
+              "sys.modules['matplotlib'] = None; sys.modules['pandas'] = None\n"
               f"import {module}\n"
               "assert not [m for m in sys.modules if m.split('.')[0] == 'synthesis_in_style_tpu']")
     out = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,

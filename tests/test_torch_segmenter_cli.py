@@ -254,10 +254,12 @@ def test_area_filter_needs_the_device_filter(trained, monkeypatch):
     assert len(json.loads((root / "y" / "results.json").read_text())["runs"]) == 4
 
 
-@pytest.mark.parametrize("extra", [["--wandb-project-name", "p"], ["--local_rank", "0"]])
+@pytest.mark.parametrize("extra", [["--wandb-project-name", "p"], ["--local_rank", "1"]])
 def test_train_not_ported_flags_raise(trained, extra):
+    """wandb, and a positive rank (more than one process, ROADMAP item 11);
+    `--local_rank 0` is the single-process run (tests/test_torch_cli_flags.py)."""
     root, _ = trained
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         _train(root, "never", *extra)
 
 
