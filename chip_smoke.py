@@ -6,16 +6,17 @@ Run with no arguments, the script runs every phase below in one process
 (steps 1-2 build and check the kernels, then the phases in PHASES order:
 kernels, training_iterations, discovery, dataset, training, segmenter,
 serving, transunet, swagan_emanet, dataset_gan, capstone, autoencoder,
-evaluation) and ends in {"ok": true, "device": {...}}. `--only PHASE ...`
+options, evaluation) and ends in {"ok": true, "device": {...}}. `--only PHASE ...`
 runs those phases and every phase whose outputs they need (each phase
 names them: dataset needs discovery; segmenter dataset; serving
 segmenter; transunet dataset and segmenter; swagan_emanet training and
 segmenter; dataset_gan training and swagan_emanet; autoencoder training;
-evaluation dataset, training, segmenter, capstone and autoencoder), each
+evaluation dataset, training, segmenter, capstone and autoencoder; options
+dataset and segmenter), each
 with its gates and its own launch checks, and ends in {"ok": true, "only":
 [the phases run]}, never the full run's last line.
 
-1. Builds the four hand-written kernel libraries from
+1. Builds the five hand-written kernel libraries from
    synthesis_in_style_tpu_torch/csrc (nvcc, one process per source, all
    started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -69,7 +70,7 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    up, once measured, with every
    kernel's launch count set to 0 just before and read just after. Then
    the host contour route, the JAX package's default: the same CLI without
-   --device-contours (batch 16, 32 images, launch counts from 0: the
+   --device-contours (batch 16, 16 images, launch counts from 0: the
    generator's bias-act and blur kernels must run and the CC kernel must
    not), its coco_gt.json decoded against the val labels, the same run with
    --contour-workers 2 (label pixels identical), the host route's stages
@@ -81,8 +82,8 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    writer, for the comparison in one run.
 8. Drives the training CLI (`train_stylegan_2`) on the shipped
    configs/stylegan/stylegan_256px.yaml (bfloat16, frozen noise on layers
-   0-5, the shipped regularization) with batch 16, 8 iterations and a
-   snapshot at 8, over 64 synthetic 256px pages: once to warm up (2
+   0-5, the shipped regularization) with batch 16, 4 iterations and a
+   snapshot at 4, over 64 synthetic 256px pages: once to warm up (2
    iterations; iteration 0 runs R1 and the path length), once
    measured (launch counts set to 0 before, read after; finite losses, D and
    G moved, the snapshot's g_ema loads through the dataset path's
@@ -135,7 +136,7 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    counts from 0), whose confusion matrices must count no more than 1e-6
    of a page's pixels differently from the unfused CLI's (argmax
    near-ties: its class output skips the vote normalization, as the JAX
-   package's does); both CLI modes at 0.7 / 55 over 8 and 16 pages
+   package's does); both CLI modes at 0.7 / 55 over 4 and 8 pages
    (steady-state pages/s from the difference); and the phase's peak
    reserved memory.
 11. The capstone recipe's training legs at the recipe's widths, cut in
@@ -152,7 +153,7 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    of each network bit-equal to its 128px source; each GAN leg's launch
    counts from 0, its relative FID and seconds per evaluation, training
    images/s, and the alarm's fid_history; then `run_capstone_chain` on the
-   256px snapshot (--ks 4 6 -n 16 --num-pairs 32 --epochs 1 --batch-size 8
+   256px snapshot (--ks 4 6 -n 16 --num-pairs 16 --epochs 1 --batch-size 8
    --min-confidence 0.0 0.7 --min-contour-area 0 55
    --use-device-component-filter, --select-args '--class-mode side
    --left-threshold 0.5 --num-fg-layers 1'), each
@@ -182,7 +183,7 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    (flash) and on the CPU (plain), both against float64 on the card (eval
    logits within 1e-4; one step's gradients no further from float64 on the
    card than twice the CPU's); the training CLI on the shipped config with
-   `attention_impl: flash` over step 7's pairs (2-iteration warm-up, then 8
+   `attention_impl: flash` over step 7's pairs (2-iteration warm-up, then 4
    iterations and one validation pass with launch counts from 0: finite
    losses, weights moved, forward launches = 12 x forward passes, backward
    launches = 12 x iterations), then the same with the shipped config as it
@@ -207,13 +208,13 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    CPU, gradients of every parameter; the blur tail of step 2 covers
    SWAGAN's five upsample outputs ((8..64, 512) and (128, 256)). After
    the TransUNet phase: `train_stylegan_2` on configs/stylegan/
-   swagan_256px.yaml (bfloat16) cut to batch 16, 8 iterations and a
+   swagan_256px.yaml (bfloat16) cut to batch 16, 4 iterations and a
    snapshot at 8 (a 2-iteration warm-up run, then measured with launch
    counts from 0:
    the bias-act forward and backward and the blur tail must run; one
    iteration under torch.profiler; the bias-act forward at every (shape,
    dtype) it launched); on that snapshot's g_ema, `create_semantic_
-   segmentation -n 16 -b 8 -c 6 9` over all 12 wavelet-space layers
+   segmentation -n 8 -b 8 -c 6 9` over all 12 wavelet-space layers
    (launch counts from 0), a label map for its k = 8 catalog, the dataset
    path at batch 2 card vs CPU (generator and activations within 1e-3, the
    device back half bit for bit) and the dataset CLI with configs/
@@ -225,7 +226,7 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    1e-4; gradients, BatchNorm statistics and the new µ no further from
    float64 on the card than twice the CPU's); `train` on configs/
    segmenter/swagan_ema_net_segmenter.yaml (256px, batch 8, bfloat16) over
-   the SWAGAN pairs (a 2-iteration warm-up, then 8 iterations and a
+   the SWAGAN pairs (a 2-iteration warm-up, then 4 iterations and a
    validation pass with launch counts from 0; the step alone, 10 steps
    and one profiled); and its snapshot on step 9's four 2048x1536 pages
    at 0.7 / 55 (the analyze CLI with launch counts from 0, CC must run;
@@ -278,18 +279,18 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    seeded non-zero noise weights; and the 256px StyleGAN1 generator and
    discriminator forwards (batch 2, within 1e-3 of max|ref|). Then, with
    PyTorch's defaults: autoencoder training (AutoencoderUpdater under the
-   Trainer, denoising pairs, batch 8, 2 warm-up then 8 iterations with
+   Trainer, denoising pairs, batch 8, 2 warm-up then 4 iterations with
    launch counts from 0: exactly 7 bias-act forwards, 6 blur tails and 13
    bias-act backwards an iteration; the step alone and profiled; peak
    reserved memory; the decoder unchanged); `train_adversarial_generator`
    (a 2-iteration first run that writes the snapshot, probe grid and log,
-   then 8 iterations at batch 8 with launch counts from 0; D + G alone
+   then 4 iterations at batch 8 with launch counts from 0; D + G alone
    and profiled; peak memory); the same CLI with stylegan_variant 1 for 2
    iterations at batch 4 (no port kernel may run); run_image_reconstruction
    on 4 images at 50 + 50 steps (ms a step per stage, both losses
    falling, exactly a decode and its backward a step); analyze_latent_code
-   on 16 images (the embedding's images/s, its cache and blueprints);
-   `create_semantic_segmentation -i` at -n 16 -b 8 -c 6 8 (a decode a
+   on 8 images (the embedding's images/s, its cache and blueprints);
+   `create_semantic_segmentation -i` at -n 8 -b 8 -c 6 8 (a decode a
    batch, the discovery artifacts). The bias-act pair and the blur tail
    are held against their plain versions at every (shape, dtype) the
    training, adversarial and projection paths launched.
@@ -307,7 +308,7 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    sits up to ~1.05e-5 from its float64 value on these flat pages, where
    card and CPU read 1.01-1.03e-5 apart in float32 on an H100);
    GenerativeFID of step
-   8's snapshot as the script builds it, 64 samples at -b 8 from the same
+   8's snapshot as the script builds it, 32 samples at -b 8 from the same
    z and the 16 val pages' real features (features within 1e-4 of
    max|ref|, the distance within 1e-3 relative; the capstone phase's FID
    check reads ~3e-7). Then with PyTorch's defaults:
@@ -329,8 +330,37 @@ with its gates and its own launch checks, and ends in {"ok": true, "only":
    (every image once, with its annotations); and the bias-act forward and
    the blur tail at every (shape, dtype) `evaluate_checkpoints` and
    `fid_trend` launched against their plain versions.
+17. The options phase, run after step 15 and before step 16, on step 7's
+   run and step 9's snapshot and pages. The dataset CLI with `--quantize` (the w8a8 int8 generator,
+   device contours, batch 16, 32 images after a one-batch warm-up; launch
+   counts from 0: no blur tail, 7 int8 convolutions a forward, the
+   forwards read from the bias-act count at 21 a forward), its labelled
+   images/s read in turns with the float CLI's; the int8 kernel bit for
+   bit at every shape that run launched; the quantized generator's
+   cluster labels against the float one's on the same 16 latents, TF32
+   off (the JAX package's gate: a k = 6 catalog fitted on the float
+   activations of layers 4 and 6, > 0.99 each; the dataset path's
+   catalogs at its layers 8, 9, 12, 13 reported). Page serving in int8
+   (unfused and fused, beside float32 in the same run, 0.7 / 55) and the
+   analyze CLI with `--quantize` (26 int8 convolutions a patch batch, CC
+   launched); the JAX package's own DocUFCN gate on the card (widths 8 /
+   16 / 24 / 32, 64 px, two BatchNorm updates: correlation > 0.995,
+   agreement > 0.97, both decoders); the int8 kernel (csrc/int8_conv.cu)
+   bit for bit against its plain version at every shape the page path and
+   that gate launched and at (16, 256, 256, 128) x (3, 3, 128, 128), where
+   it is timed beside the plain version, its bound, torch._int_mm over an
+   im2col and cuDNN's float32, TF32 and bfloat16 convolutions; the served
+   pages' class maps at 0.0 / 0 against float32 (> 0.97; on the seeded
+   multi-class DocUFCN reported). Two training steps of the shipped
+   DocUFCN with and without `remat` (TF32 off, cuDNN deterministic:
+   gradients within 1e-5, BatchNorm statistics moved once a step, peak
+   memory of each); a process group of world size 1 on NCCL driving a
+   DocUFCN step (float64) and a 256px GAN iteration through the
+   distributed route, against the same without a group (within 1e-5); and
+   `scripts/sustained_synthesis.py` over 32 images (its samples of pairs
+   written, RSS and open files).
    Steps 5, 7 to 10, the GAN legs of 11, the training and pages of 12,
-   the paths of 13 and 14, the rates of 15 and 16 run with PyTorch's
+   the paths of 13 and 14, the rates of 15, 16 and 17 run with PyTorch's
    defaults (TF32 cuDNN convolutions, float32 matmuls); each phase starts
    from that state (kernels, training_iterations and dataset from TF32
    off), so that it runs the same under --only.
@@ -382,10 +412,11 @@ Their CPU counterparts, against the JAX package at small sizes:
   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q
 
 Rehearsing a phase on the CPU: the phase functions take the module's
-DEVICE, CONFIG_256, CREATION_CONFIG, BATCH, NUM_IMAGES and NUM_CLUSTERS, so a
-script that imports this file can set DEVICE = "cpu", a small generator
-(CONFIG_256 image_size 32, latent_size 32, n_mlp 2, with the creation
-config's layers 4 5 / 6 7), BATCH 4 and NUM_IMAGES 8, write a run directory
+DEVICE, CONFIG_256, CREATION_CONFIG, BATCH, NUM_IMAGES (HOST_ROUTE_IMAGES for
+the host route) and NUM_CLUSTERS, so a script that imports this file can set
+DEVICE = "cpu", a small generator (CONFIG_256 image_size 32, latent_size 32,
+n_mlp 2, with the creation config's layers 4 5 / 6 7), BATCH 4, NUM_IMAGES
+and HOST_ROUTE_IMAGES 8, write a run directory
 (`make_run_dir`) with a catalog and label map of its own, and call
 `host_route_phase(run, root, fns)` with stand-in counters (objects with a
 `launches` attribute; on the CPU the plain versions run, so it must count
@@ -1094,6 +1125,7 @@ def counters():
         fused_leaky_relu_cuda,
     )
     from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act_cuda
+    from synthesis_in_style_tpu_torch.ops.cuda.int8_conv import int8_conv_cuda
     from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
 
     # segmented_cc counts labellings (one fixpoint each), not kernel launches;
@@ -1101,7 +1133,8 @@ def counters():
     return {"fused_bias_act": fused_leaky_relu_cuda,
             "fused_bias_act_bwd": fused_leaky_relu_bwd_cuda,
             "fused_blur": blur_demod_noise_bias_act_cuda,
-            "segmented_cc": connected_components_cuda, **flash_counters()}
+            "segmented_cc": connected_components_cuda, **flash_counters(),
+            "int8_conv": int8_conv_cuda}
 
 
 def reference_check(run: Path, config=None, creation=None) -> torch.Tensor:
@@ -1162,15 +1195,15 @@ def reference_check(run: Path, config=None, creation=None) -> torch.Tensor:
 
 
 def drive_path(run: Path, save_to: Path, device_contours: bool = True, workers: int = 0,
-               creation=None) -> dict:
+               creation=None, extra=(), num_images=None) -> dict:
     """The dataset CLI on the card with `creation` (CREATION_CONFIG by
-    default): build_dataset timed (warm kernels), then the train/val split
-    and coco_gt.json."""
+    default) and `extra` flags: build_dataset timed (warm kernels), then the
+    train/val split and coco_gt.json."""
     from synthesis_in_style_tpu_torch.cli import create_dataset_for_segmentation as cds
 
     argv = [str(run / "checkpoints" / "g_ema.pt"), str(run / "creation_config.json"),
-            "-n", str(NUM_IMAGES), "-b", str(BATCH), "--num-clusters", str(NUM_CLUSTERS),
-            "-s", str(save_to), "-d", DEVICE]
+            "-n", str(num_images or NUM_IMAGES), "-b", str(BATCH), "--num-clusters",
+            str(NUM_CLUSTERS), "-s", str(save_to), "-d", DEVICE, *extra]
     if device_contours:
         argv.append("--device-contours")
     if workers:
@@ -1244,6 +1277,9 @@ class _one_png_thread:
         return False
 
 
+HOST_ROUTE_IMAGES = 16  # the host route's -n (one batch; 32 before PR 17)
+
+
 def host_route_phase(run: Path, root: Path, fns: dict) -> dict:
     """The dataset CLI without --device-contours (the host contour route):
     once measured with launch counts from 0 (the generator's two kernels
@@ -1253,16 +1289,18 @@ def host_route_phase(run: Path, root: Path, fns: dict) -> dict:
     halves on one batch of the path's own masks."""
     for fn in fns.values():
         fn.launches = 0
-    path = drive_path(run, root / "generated_host", device_contours=False)
+    path = drive_path(run, root / "generated_host", device_contours=False,
+                      num_images=HOST_ROUTE_IMAGES)
     launches = {name: fn.launches for name, fn in fns.items()}
     for name in ("fused_bias_act", "fused_blur"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the host dataset route")
     if launches["segmented_cc"] != 0:
         raise AssertionError("the host dataset route launched the CC kernel")
-    n = check_outputs(root / "generated_host")
+    n = check_outputs(root / "generated_host", expected=HOST_ROUTE_IMAGES)
     annotations = check_coco_gt(root / "generated_host")
-    workers = drive_path(run, root / "generated_host_workers", device_contours=False, workers=2)
+    workers = drive_path(run, root / "generated_host_workers", device_contours=False, workers=2,
+                         num_images=HOST_ROUTE_IMAGES)
     same_files = compare_label_pngs(root / "generated_host", root / "generated_host_workers")
     stages, masks = host_stage_times(run, root / "host_stages")
     divergence = host_vs_device(run, masks)
@@ -1408,15 +1446,17 @@ def host_vs_device(run: Path, masks: dict) -> dict:
     return out
 
 
-def check_outputs(save_to: Path, size: int = 0) -> int:
+def check_outputs(save_to: Path, size: int = 0, expected: int = 0) -> int:
     """The dataset path's [image | label] pairs (`size` px, CONFIG_256's by
-    default) and its train/val split."""
+    default; at least `expected`, NUM_IMAGES by default) and its train/val
+    split."""
     from synthesis_in_style_tpu_torch.utils.png import read_png
 
     size = size or CONFIG_256["image_size"]
+    expected = expected or NUM_IMAGES
     pngs = sorted(save_to.glob("**/*.png"))
-    if len(pngs) < NUM_IMAGES:
-        raise AssertionError(f"{len(pngs)} PNGs written, expected >= {NUM_IMAGES}")
+    if len(pngs) < expected:
+        raise AssertionError(f"{len(pngs)} PNGs written, expected >= {expected}")
     painted = 0
     for png in pngs:
         pair = read_png(png)
@@ -1560,7 +1600,7 @@ def check_training_iteration(detail, config=None) -> float:
 
 
 TRAIN_CONFIG = Path(__file__).resolve().parent / "configs" / "stylegan" / "stylegan_256px.yaml"
-TRAIN_OVERRIDES = {"batch_size": 16, "max_iter": 8, "snapshot_save_iter": 8}
+TRAIN_OVERRIDES = {"batch_size": 16, "max_iter": 4, "snapshot_save_iter": 4}
 TRAIN_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}  # iteration 0 runs R1 and path length
 TRAIN_PAGES = 64
 
@@ -2208,7 +2248,7 @@ def segmenter_phase(root: Path, dataset: Path, fns: dict, cc_detail: list) -> di
 SERVING_ROUNDS = 2  # timed passes over the pages per pages/s reading (16 pages)
 # the analyze CLI's page counts for its steady-state rate: 1 and 2 of
 # throughput mode's load chunks (4 x pages per batch), at one sweep setting
-SERVING_CLI_PAGES = (8, 16)
+SERVING_CLI_PAGES = (4, 8)
 # pixels whose float32 confidences' top two differ by at least this in log
 # (the logit margin, where patches do not overlap) hold the bfloat16 gate
 BF16_LOGIT_MARGIN = 4.0
@@ -2945,7 +2985,7 @@ FIXTURE_ARGS = ("--size", "256", "--num-pages", "64", "--num-eval", "8")
 # class-determination layers and the fine layer hold both classes, as the
 # dataset segmenter needs (class names only: no gate is read)
 CHAIN_SELECT_ARGS = "--class-mode side --left-threshold 0.5 --num-fg-layers 1"
-CHAIN_ARGS = ("--ks", "4", "6", "--num-discovery-samples", "16", "--num-pairs", "32",
+CHAIN_ARGS = ("--ks", "4", "6", "--num-discovery-samples", "16", "--num-pairs", "16",
               "--epochs", "1", "--batch-size", "8", "--min-confidence", "0.0", "0.7",
               "--min-contour-area", "0", "55", "--use-device-component-filter")
 FID_CHECK_IMAGES = 8
@@ -2963,10 +3003,11 @@ from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bi
 from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
 from synthesis_in_style_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_cuda, flash_attention_fwd_cuda)
+from synthesis_in_style_tpu_torch.ops.cuda.int8_conv import int8_conv_cuda
 fns = {"fused_bias_act": fused_leaky_relu_cuda, "fused_bias_act_bwd": fused_leaky_relu_bwd_cuda,
        "fused_blur": blur_demod_noise_bias_act_cuda, "segmented_cc": connected_components_cuda,
        "flash_attention_fwd": flash_attention_fwd_cuda,
-       "flash_attention_bwd": flash_attention_bwd_cuda}
+       "flash_attention_bwd": flash_attention_bwd_cuda, "int8_conv": int8_conv_cuda}
 assert sys.argv[1] == "-m"
 module = sys.argv[2]
 out = os.path.join(os.environ["SIS_LAUNCH_COUNTS_DIR"], f"{module}.{os.getpid()}.json")
@@ -3390,7 +3431,7 @@ def capstone_phase(root: Path, fns: dict) -> dict:
 BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense
 TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 TU_CONFIG = REPO_ROOT / "configs" / "segmenter" / "stylegan2_trans_u_net_segmenter.yaml"
-TU_OVERRIDES = {"max_iter": 8, "snapshot_save_iter": 8, "log_iter": 4}
+TU_OVERRIDES = {"max_iter": 4, "snapshot_save_iter": 4, "log_iter": 2}
 TU_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}
 TU_TIMED_STEPS = 5  # the training step alone: timed steps
 TU_CHECK_SIZE = 512  # the card-vs-CPU network's image size (1024 tokens)
@@ -4059,9 +4100,9 @@ SWAGAN_CONFIG = {  # configs/stylegan/swagan_256px.yaml's generator, as JSON
     "image_size": 256, "latent_size": 512, "n_mlp": 8, "channel_multiplier": 2,
     "stylegan_variant": "swagan",
 }
-SWAGAN_DISCOVERY = (16, 8, (6, 9))  # -n 16 -b 8 -c 6 9
+SWAGAN_DISCOVERY = (8, 8, (6, 9))  # -n 8 -b 8 -c 6 9
 EMANET_CONFIG = REPO_ROOT / "configs" / "segmenter" / "swagan_ema_net_segmenter.yaml"
-EMANET_OVERRIDES = {"max_iter": 8, "snapshot_save_iter": 8, "log_iter": 4}
+EMANET_OVERRIDES = {"max_iter": 4, "snapshot_save_iter": 4, "log_iter": 2}
 EMANET_WARMUP = {"max_iter": 2, "snapshot_save_iter": 2}
 EMANET_CHECK_BATCH = 2
 
@@ -4077,8 +4118,8 @@ def _zero(fns: dict) -> None:
 
 def swagan_training(data: Path, root: Path, fns: dict) -> dict:
     """`train_stylegan_2` on the shipped swagan_256px.yaml (bfloat16, its
-    regularization) cut to TRAIN_OVERRIDES (batch 16, 8 iterations, a
-    snapshot at 8) over the training pages: a warm-up run, a measured run
+    regularization) cut to TRAIN_OVERRIDES (batch 16, 4 iterations, a
+    snapshot at 4) over the training pages: a warm-up run, a measured run
     with launch counts from 0 (the bias-act forward and backward and the
     blur tail must run) and the bias-act shapes it launched, then one
     iteration under torch.profiler."""
@@ -4960,13 +5001,13 @@ def dataset_gan_phase(root: Path, gan_snapshot: Path, swagan_snapshot: Path, fns
 
 
 AE_STEP_BATCH = 2  # the autoencoder step card vs CPU
-AE_RATE = (8, 8)  # autoencoder training: iterations, batch
-ADV_RATE = (8, 8)  # the adversarial CLI: iterations, batch
+AE_RATE = (4, 8)  # autoencoder training: iterations, batch
+ADV_RATE = (4, 8)  # the adversarial CLI: iterations, batch
 ADV_V1 = (2, 4)  # the adversarial CLI with stylegan_variant 1: iterations, batch
 PROJECTION = (4, 50, 50)  # run_image_reconstruction: images, w+ steps, noise steps
 PROJECTION_CHECK_STEPS = 3  # steps of each stage held card vs CPU
-ANALYZE_IMAGES = 16
-AE_DISCOVERY = (16, 8, (6, 8))  # -i discovery's -n, -b, -c
+ANALYZE_IMAGES = 8
+AE_DISCOVERY = (8, 8, (6, 8))  # -i discovery's -n, -b, -c
 AE_CUTS = {}  # a CPU rehearsal shrinks the autoencoder configs' sizes here
 # how far beyond twice the CPU a gradient tensor on the card may sit from
 # float64 (`_grad_errors`): AE_GRAD_TOL of the step's largest gradient, capped
@@ -5805,7 +5846,7 @@ EVAL_VAL_PAGES = 16  # the training pages' val.json: the last 16 of them
 EVAL_BATCH, EVAL_FID_SAMPLES = 8, 1000  # evaluate_checkpoints' defaults, -b and FID samples
 EVAL_TREND = (256, 16)  # fid_trend's --num-samples and --batch
 EVAL_CHECK_IMAGES = 4  # reconstruction card vs CPU, one image a batch
-EVAL_CHECK_FID = 64  # FID card vs CPU: samples of each kind, at -b EVAL_BATCH
+EVAL_CHECK_FID = 32  # FID card vs CPU: samples of each kind, at -b EVAL_BATCH
 EVAL_SUBSET_PAGES = 2  # extract_results_subset's pages
 EVAL_RATE_PASSES = 3  # timed passes over the val pages on the card: the reconstruction rate
 PSNR_TOLERANCE, SSIM_TOLERANCE, FID_FEATURE_TOLERANCE, FID_TOLERANCE = 1e-3, 1e-5, 1e-4, 1e-3
@@ -6358,6 +6399,643 @@ def flash_only(smi: str, detail_path) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the options phase: the int8 kernel, quantized synthesis and pages, DocUFCN
+# remat, a process group of one on NCCL, the sustained-synthesis run
+
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+INT8_MAIN = ((16, 256, 256, 128), (3, 3, 128, 128))  # the 256px generator's last 3x3
+# int8 convolutions a forward: the quantized generator's non-upsampling
+# StyledConvs (conv1 and one a level: 1 + 6 at 256px); the quantized
+# DocUFCN's convs but the first (4 + 3 x 5 encoder, 3 x 2 decoder, classifier)
+INT8_PER_GENERATOR_FORWARD = 7
+INT8_PER_DOCUFCN_FORWARD = 26
+# bias-act forwards of a quantized 256px forward from z: the 8 mapping
+# layers and all 13 StyledConvs (the upsampling ones take the unfused tail)
+BIAS_ACT_PER_QUANTIZED_FORWARD = 21
+SUSTAINED = {"num_images": 32, "interval": 2.0}
+REMAT_BATCH = 8
+
+
+def _int8_operands(x_shape, w_shape, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-127, 128, x_shape, generator=g, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, w_shape, generator=g, device="cuda", dtype=torch.int8)
+    return x, w
+
+
+def _int_mm_im2col(x, w, pad: int):
+    """The library route: a 9-tap im2col (KH * KW times x) and torch._int_mm."""
+    import torch.nn.functional as F
+
+    b, h, wd, c = x.shape
+    kh, kw, _, o = w.shape
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + wd] for dy in range(kh) for dx in range(kw)],
+                     dim=-1).reshape(b * h * wd, kh * kw * c)
+    return torch._int_mm(cols, w.reshape(kh * kw * c, o)).reshape(b, h, wd, o)
+
+
+def check_int8_conv(shapes, timed: bool = True, checked=()) -> dict:
+    """The int8 kernel against its plain version (a float64 convolution of
+    the int8 values, exact) on random int8 operands at every (x, w, stride,
+    pads, lhs and rhs dilation) in `shapes` (the paths' launches) and the
+    main shape: bit for bit. At the main shape: the kernel's time, the plain
+    version's, the bound (bytes: x and w read, int32 out written; operations:
+    2 x M x N x K at the int8 rate), and as library yardsticks _int_mm over
+    an im2col (also held bit for bit) and cuDNN's float32 and bfloat16
+    convolutions of the same shape (channels last). Without `timed`, only
+    the check at `shapes`; `checked` carries an earlier call's list on."""
+    import torch.nn.functional as F
+
+    from synthesis_in_style_tpu_torch.ops.cuda.int8_conv import int8_conv_cuda, int8_conv_plain
+
+    main = (INT8_MAIN[0], INT8_MAIN[1], 1, (1, 1, 1, 1), 1, 1)
+    cases = sorted(set(shapes) | ({main} if timed else set()), key=str)
+    checked = list(checked)
+    for i, (xs, ws, stride, (pt, pb, pl, pr), ld, rd) in enumerate(cases):
+        x, w = _int8_operands(xs, ws, SEED + 40 + i)
+        kw = dict(stride=stride, padding=((pt, pb), (pl, pr)), lhs_dilation=(ld, ld),
+                  rhs_dilation=(rd, rd))
+        before = int8_conv_cuda.launches
+        got = int8_conv_cuda(x, w, **kw)
+        int8_conv_cuda.launches = before  # a comparison launch is not the path's
+        want = int8_conv_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_conv {xs} x {ws} {kw}: kernel and plain differ by "
+                                 f"{(got - want).abs().max().item()}")
+        checked.append({"x": xs, "w": ws, "stride": stride, "pads": (pt, pb, pl, pr),
+                        "lhs_dilation": ld, "rhs_dilation": rd})
+    if not timed:
+        return {"shapes_checked": checked}
+    x, w = _int8_operands(*INT8_MAIN, SEED + 39)
+    before = int8_conv_cuda.launches
+    ms = bench_ms(lambda: int8_conv_cuda(x, w, padding=1), iters=20)
+    queued = queued_ms(lambda: int8_conv_cuda(x, w, padding=1), iters=20)
+    plain_ms = bench_ms(lambda: int8_conv_plain(x, w, padding=1), iters=3)
+    int8_conv_cuda.launches = before
+    library = _int_mm_im2col(x, w, 1)
+    if not torch.equal(library, int8_conv_plain(x, w, padding=1)):
+        raise AssertionError("int8_conv: _int_mm over the im2col differs from the plain version")
+    del library
+    library_ms = bench_ms(lambda: _int_mm_im2col(x, w, 1), iters=10)
+    xf = x.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    wf = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    set_tf32(False)
+    cudnn_f32 = bench_ms(lambda: F.conv2d(xf, wf, padding=1), iters=10)
+    set_tf32(True)
+    cudnn_tf32 = bench_ms(lambda: F.conv2d(xf, wf, padding=1), iters=10)
+    xb, wb = xf.to(torch.bfloat16), wf.to(torch.bfloat16)
+    cudnn_bf16 = bench_ms(lambda: F.conv2d(xb, wb, padding=1), iters=10)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, n, k = x.shape[0] * x.shape[1] * x.shape[2], w.shape[3], 9 * w.shape[2]
+    nbytes = x.numel() + w.numel() + 4 * m * n
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * n * k / INT8_OPS_PER_S * 1e3
+    return {"ms": ms, "device_ms": queued, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_cudnn_float32_ms": cudnn_f32, "library_cudnn_tf32_ms": cudnn_tf32,
+            "library_cudnn_bf16_ms": cudnn_bf16, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops, "max_abs_err": 0.0,
+            "shapes_checked": checked}
+
+
+# the JAX package's gate (tests/test_quantized_synthesis.py:168-187): layers 4
+# and 6, a k = 6 catalog fitted on the float activations, > 0.99 agreement
+AGREEMENT_LAYERS, AGREEMENT_K = (4, 6), 6
+
+
+def quantized_cluster_agreement(run: Path) -> dict:
+    """Per-pixel cluster labels of the quantized generator's activations
+    against the float generator's on the same latents (batch BATCH, stored
+    noise, TF32 off): the JAX package's gate, a k = 6 catalog fitted on the
+    float activations of layers 4 and 6, > 0.99 at each; and, reported, the
+    dataset path's own catalogs at the layers it labels (8, 9 at 64 px, 12,
+    13 at 256 px, where a quantization error has passed more layers)."""
+    from synthesis_in_style_tpu_torch.cli.create_dataset_for_segmentation import (
+        get_dataset_segmenter,
+    )
+    from synthesis_in_style_tpu_torch.models.factory import load_generator
+    from synthesis_in_style_tpu_torch.segmentation.factor_catalog import FactorCatalog
+
+    ckpt = run / "checkpoints" / "g_ema.pt"
+    seg = get_dataset_segmenter(argparse.Namespace(num_clusters=NUM_CLUSTERS), CREATION_CONFIG,
+                                256, run / "semantic_segmentation", DEVICE)
+    z = torch.randn((BATCH, 512), generator=torch.Generator().manual_seed(SEED + 41))
+    layers = sorted(set(AGREEMENT_LAYERS) | {int(k) for k in seg.catalog})
+    acts = {}
+    set_tf32(False)
+    try:
+        for quantize in (False, True):
+            gen = load_generator(ckpt, {**CONFIG_256, "quantize": quantize}, device=DEVICE)
+            with torch.no_grad():
+                _, out = gen([z.to(DEVICE)], randomize_noise=False,
+                             return_intermediate_activations=True)
+            acts[quantize] = {k: out[k] for k in layers}
+            del gen, out
+        gate, catalog_layers = {}, {}
+        for layer in AGREEMENT_LAYERS:
+            catalog = FactorCatalog(k=AGREEMENT_K, seed=0)
+            want = catalog.fit_predict(acts[False][layer])
+            gate[layer] = float((catalog.predict(acts[True][layer]) == want).float().mean())
+        for k, catalog in seg.catalog.items():
+            want = catalog.predict(acts[False][int(k)])
+            catalog_layers[int(k)] = float(
+                (catalog.predict(acts[True][int(k)]) == want).float().mean())
+        correlation = {k: float(torch.corrcoef(torch.stack([
+            acts[False][k].flatten().float(), acts[True][k].flatten().float()]))[0, 1])
+            for k in layers}
+    finally:
+        _defaults()
+    if not min(gate.values()) > 0.99:
+        raise AssertionError(f"quantized vs float cluster labels at layers {AGREEMENT_LAYERS} "
+                             f"(k = {AGREEMENT_K}): {gate}, need > 0.99")
+    return {"gate": gate, "dataset_catalogs": catalog_layers, "correlation": correlation}
+
+
+def quantized_synthesis(run: Path, root: Path, fns: dict) -> dict:
+    """The dataset CLI with --quantize (device contours, batch BATCH,
+    NUM_IMAGES images) after a warm-up of one batch, with launch counts from
+    0: no blur tail, int8 convolutions INT8_PER_GENERATOR_FORWARD a forward
+    (the forwards read from the bias-act count), CC launched. Its rate is
+    read in turns with the float CLI's in this run (float, int8, int8,
+    float; a reading is 2-3 batches, host work included). Returns the
+    rates, the launches and the int8 shapes the first int8 reading
+    launched."""
+    from synthesis_in_style_tpu_torch.ops.cuda.int8_conv import int8_conv_cuda
+
+    drive_path(run, root / "quantized_warmup", extra=("--quantize",), num_images=BATCH)
+    readings = {"float32": [], "int8": []}
+    for i, kind in enumerate(("float32", "int8", "int8", "float32")):
+        if i == 1:
+            _zero(fns)
+            int8_conv_cuda.shapes.clear()
+        out = root / f"generated_{kind}_{i}"
+        reading = drive_path(run, out, extra=("--quantize",) if kind == "int8" else ())
+        readings[kind].append(reading["written"] / reading["seconds"])
+        if i == 1:
+            path, launches, shapes = reading, _launches(fns), dict(int8_conv_cuda.shapes)
+            n = check_outputs(out)
+    forwards, rest = divmod(launches["fused_bias_act"], BIAS_ACT_PER_QUANTIZED_FORWARD)
+    want = {"fused_blur": 0, "int8_conv": INT8_PER_GENERATOR_FORWARD * forwards}
+    if rest or not forwards:
+        raise AssertionError(f"quantized synthesis: {launches['fused_bias_act']} bias-act "
+                             f"forwards are no whole number of forwards of "
+                             f"{BIAS_ACT_PER_QUANTIZED_FORWARD}")
+    _check_launches("quantized synthesis", launches, want)
+    return {**path, "images_per_s": readings["int8"],
+            "float32_images_per_s": readings["float32"], "launches": launches,
+            "forwards": forwards, "pngs": n, "shapes": shapes}
+
+
+def _page_segmenter_q(snap, fused: bool, quantized: bool, network=None):
+    from synthesis_in_style_tpu_torch.segmentation.analysis_segmenter import (
+        VotingAssemblySegmenter,
+    )
+
+    extra = ({"network": copy.deepcopy(network),
+              "config": {"image_size": 256, "batch_size": SEG_OVERRIDES.get("batch_size", 8)}}
+             if network is not None else {})
+    seg = VotingAssemblySegmenter(snap, COLOR_MAP, use_device_component_filter=True,
+                                  fused_page_inference=fused, quantized=quantized,
+                                  device=DEVICE, **extra)
+    seg.set_hyperparams({"min_confidence": 0.7, "min_contour_area": 55})
+    return seg
+
+
+def quantized_pages(root: Path, snap: Path, images, pages: Path, pages_gt: Path,
+                    fns: dict) -> dict:
+    """The segmenter phase's DocUFCN snapshot and 2048x1536 pages served in
+    w8a8 int8: pages/s unfused and fused (one page a call, a CUDA graph per
+    tiling), beside float32 in this run (a warm pass, then SERVING_ROUNDS
+    timed passes, 0.7 / 55); then the analyze CLI with --quantize at 0.7 /
+    55 with launch counts from 0 (int8 INT8_PER_DOCUFCN_FORWARD a patch
+    batch, CC launched). Returns the rates, the CLI's launches and the int8
+    shapes the unfused route launched."""
+    from synthesis_in_style_tpu_torch.ops.cuda.int8_conv import int8_conv_cuda
+
+    int8_conv_cuda.shapes.clear()
+    rates = {}
+    for quantized in (False, True):
+        for fused in (False, True):
+            seg = _page_segmenter_q(snap, fused, quantized)
+            _sync()
+            t0 = time.perf_counter()
+            for image in images:
+                seg.segment_image_classes(image)
+            _sync()
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(SERVING_ROUNDS):
+                for image in images:
+                    seg.segment_image_classes(image)
+            _sync()
+            seconds = time.perf_counter() - t0
+            key = f"{'fused' if fused else 'unfused'}_{'int8' if quantized else 'float32'}"
+            rates[key] = {"pages_per_s": SERVING_ROUNDS * len(images) / seconds,
+                          "first_pass_s": first, "graphs": len(seg.page_programs())}
+            if quantized and fused:
+                rates[key]["int8_launches_per_replay"] = [
+                    p.int8_launches_per_replay for p in seg.page_programs()]
+            _drop(seg)
+    shapes = dict(int8_conv_cuda.shapes)
+
+    _zero(fns)
+    cli_s = run_analyze(pages, pages_gt, snap, root / "analyze_quantized",
+                        sweep={"min_confidence": ("0.7",), "min_contour_area": ("55",)},
+                        extra=("--quantize",))
+    launches = _launches(fns)
+    seg = _page_segmenter_q(snap, False, False)
+    batches = math.ceil(len(seg.calculate_bboxes_for_patches(images[0].width,
+                                                             images[0].height))
+                        / seg.batch_size)
+    _check_launches("quantized pages CLI", launches,
+                    {"int8_conv": INT8_PER_DOCUFCN_FORWARD * batches * len(images)})
+    if launches["segmented_cc"] <= 0:
+        raise AssertionError("quantized pages CLI: no CC labelling")
+    return {"rates": rates, "cli_seconds": cli_s, "cli_launches": launches,
+            "patch_batches_per_page": batches, "shapes": shapes}
+
+
+def quantized_page_agreement(snap: Path, images) -> dict:
+    """Class maps of int8 serving against float32 at 0.0 / 0, TF32 off: on
+    the snapshot's pages (the served path; > 0.97, the JAX package's gate)
+    and, reported, on the seeded multi-class DocUFCN (random weights and a
+    classifier scaled by PARITY_LOGIT_SCALE: many pixels within a small
+    margin of a tie)."""
+    import numpy as np
+
+    agreement = {}
+    net = seeded_page_network(images[0])
+    set_tf32(False)
+    try:
+        for name, snapshot, network in (("snapshot", snap, None),
+                                        ("seeded_multi_class", None, net)):
+            maps = {}
+            for quantized in (False, True):
+                seg = _page_segmenter_q(snapshot, False, quantized, network)
+                seg.set_hyperparams({"min_confidence": 0.0, "min_contour_area": 0})
+                maps[quantized] = [seg.segment_image_classes(image) for image in images]
+                _drop(seg)
+            agreement[name] = float(np.mean([(a == b).mean()
+                                             for a, b in zip(maps[False], maps[True])]))
+            agreement[f"{name}_class_shares"] = [
+                float(np.mean([(m == k).mean() for m in maps[False]])) for k in range(3)]
+    finally:
+        _defaults()
+    if not agreement["snapshot"] > 0.97:
+        raise AssertionError(f"quantized pages: class maps agree with float32 on "
+                             f"{agreement['snapshot']:.5f} of pixels, need > 0.97")
+    return agreement
+
+
+def check_quantized_docufcn_fitted() -> dict:
+    """The JAX package's own gate (tests/test_quantized_docufcn.py:48-101) on
+    the card: a DocUFCN of widths (8, 16, 24, 32) from a seeded init, two
+    train-mode BatchNorm updates on uniform [-1, 1] inputs (2, 64, 64, 3)
+    (the second + 0.1), calibrated on those inputs; quantized against float
+    logits, TF32 off: correlation > 0.995 and argmax agreement > 0.97, for
+    both decoders. Widths of 24 channels take the kernel's byte-wise loads."""
+    from synthesis_in_style_tpu_torch.models.doc_ufcn import DocUFCN
+    from synthesis_in_style_tpu_torch.models.doc_ufcn_quant import quantize_for_serving
+
+    out = {}
+    set_tf32(False)
+    try:
+        for pixel_shuffle in (False, True):
+            net = DocUFCN(num_classes=3, feature_sizes=(8, 16, 24, 32),
+                          pixel_shuffle=pixel_shuffle)
+            net.init_weights(torch.Generator().manual_seed(SEED + 46)).to(DEVICE)
+            x = (torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(SEED + 47))
+                 * 2 - 1).to(DEVICE)
+            torch.manual_seed(SEED + 48)
+            with torch.no_grad():
+                for i in range(2):
+                    net.train()(x + 0.1 * i)
+                net.eval()
+                want = net(x)
+                got = quantize_for_serving(net, [x])(x)
+            corr = float(torch.corrcoef(torch.stack([want.flatten(), got.flatten()]))[0, 1])
+            agree = float((want.argmax(1) == got.argmax(1)).float().mean())
+            out["pixel_shuffle" if pixel_shuffle else "base"] = {"correlation": corr,
+                                                                "agreement": agree}
+            if not (corr > 0.995 and agree > 0.97):
+                raise AssertionError(f"fitted DocUFCN (pixel_shuffle {pixel_shuffle}): "
+                                     f"correlation {corr:.5f}, agreement {agree:.5f}")
+    finally:
+        _defaults()
+    return out
+
+
+def _doc_ufcn_batch(batch: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    images = (torch.rand((batch, 3, 256, 256), generator=g) * 2 - 1).to(DEVICE)
+    labels = torch.randint(0, 3, (batch, 256, 256), generator=g).to(DEVICE)
+    return images.contiguous(memory_format=torch.channels_last), labels
+
+
+def check_doc_ufcn_remat() -> dict:
+    """Two training steps of the shipped DocUFCN (32/64/128/256, dropout
+    0.4, 256px, batch REMAT_BATCH, float32, TF32 off, cuDNN deterministic)
+    with and without remat from the same weights and dropout seeds (an SGD
+    update of 1e-3 between): every gradient within 1e-5 of its tensor's
+    largest (a conv bias feeding train-mode BatchNorm, true gradient 0: of
+    the step's largest), the BatchNorm statistics within 1e-5, the
+    statistics moved once a step; peak allocated memory of each."""
+    from synthesis_in_style_tpu_torch.losses.segmentation import cross_entropy_loss
+    from synthesis_in_style_tpu_torch.models.doc_ufcn import DocUFCN
+
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        base = DocUFCN(num_classes=3).init_weights(torch.Generator().manual_seed(SEED + 42))
+        out = {}
+        for remat in (False, True):
+            net = DocUFCN(num_classes=3, remat=remat)
+            net.load_state_dict(base.state_dict())
+            net.to(DEVICE).train()
+            grads, peaks = [], []
+            for step in range(2):
+                images, labels = _doc_ufcn_batch(REMAT_BATCH, SEED + 43 + step)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                torch.manual_seed(SEED + 44 + step)
+                loss = cross_entropy_loss(net(images), labels)
+                g = torch.autograd.grad(loss, list(net.parameters()))
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated())
+                with torch.no_grad():
+                    for p, gp in zip(net.parameters(), g):
+                        p.sub_(1e-3 * gp)
+                grads.append([gp.detach().clone() for gp in g])
+            out[remat] = {"grads": grads, "peak_bytes": max(peaks),
+                          "state": {k: v.detach().clone() for k, v in net.state_dict().items()},
+                          "names": [n for n, _ in net.named_parameters()]}
+            del net
+    finally:
+        torch.backends.cudnn.deterministic = False
+        _defaults()
+    worst = 0.0
+    names = out[False]["names"]
+    for step in range(2):
+        a, b = out[False]["grads"][step], out[True]["grads"][step]
+        largest = max(float(t.abs().max()) for t in a)
+        for name, ga, gb in zip(names, a, b):
+            scale = largest if name.endswith("conv.bias") and "classifier" not in name else \
+                float(ga.abs().max())
+            err = float((ga - gb).abs().max()) / max(scale, 1e-30)
+            worst = max(worst, err)
+            if err > 1e-5:
+                raise AssertionError(f"remat step {step}: {name} gradient {err:.3g} of its "
+                                     f"scale from remat: false")
+    for k, v in out[False]["state"].items():
+        w = out[True]["state"][k]
+        if "num_batches_tracked" in k:
+            if int(w) != 2 or int(v) != 2:
+                raise AssertionError(f"remat: {k} = {int(w)} / {int(v)}, want 2")
+        elif float((w - v).abs().max()) > 1e-5 * float(v.abs().max()):
+            raise AssertionError(f"remat: {k} differs from remat: false")
+    return {"worst_grad_rel_err": worst, "peak_bytes_plain": out[False]["peak_bytes"],
+            "peak_bytes_remat": out[True]["peak_bytes"], "batch": REMAT_BATCH}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _distributed_steps(seed: int) -> dict:
+    """One DocUFCN weighted cross-entropy step (the shipped widths, no
+    dropout, batch REMAT_BATCH, 256px, float64: the route's BatchNorm and
+    cuDNN's sum in other orders, which float32 shows in the gradients of
+    the BatchNorm shifts, sums of 2^19 terms that nearly cancel) and one
+    full-width 256px StyleGAN2 iteration (D, R1, G, path length, EMA; batch
+    4; float32) from seeded weights, through the updaters (Adam with eps 1,
+    so a near-zero gradient moves its parameter by a near-zero amount, not
+    +-lr); their states before ("<key>_before") and after."""
+    from synthesis_in_style_tpu_torch.models.doc_ufcn import get_doc_ufcn
+    from synthesis_in_style_tpu_torch.models.factory import get_discriminator, get_generator
+    from synthesis_in_style_tpu_torch.updaters.segmentation_updater import SegmentationUpdater
+    from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import (
+        GANOptimizer,
+        StyleGAN2Config,
+        StyleGAN2Updater,
+        create_gan_train_state,
+    )
+
+    def snapshot(module):
+        return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+    out = {}
+    net = get_doc_ufcn("no_dropout")(num_classes=3).init_weights(
+        torch.Generator().manual_seed(seed)).to(DEVICE, torch.float64)
+    out["docufcn_before"] = snapshot(net)
+    opt = GANOptimizer(net.parameters(), lambda _: 1e-3, (0.9, 0.999), eps=1.0,
+                       weight_decay=1e-4)
+    images, labels = _doc_ufcn_batch(REMAT_BATCH, seed + 1)
+    batch = {"images": images.permute(0, 2, 3, 1).contiguous().double(), "segmented": labels}
+    updater = SegmentationUpdater(net, opt, {"images": iter([batch])},
+                                  class_weights=[1.0, 1.0, 1.0], device=DEVICE)
+    updater.report = lambda *a, **k: None
+    updater.update()
+    out["docufcn"] = snapshot(net)
+
+    gen = get_generator(CONFIG_256).init_weights(torch.Generator().manual_seed(seed + 2))
+    disc = get_discriminator(CONFIG_256).init_weights(torch.Generator().manual_seed(seed + 3))
+    gen, disc = gen.to(DEVICE), disc.to(DEVICE)
+    out["generator_before"], out["discriminator_before"] = snapshot(gen), snapshot(disc)
+    out["g_ema_before"] = out["generator_before"]
+    state = create_gan_train_state(gen, disc, lambda _: 2e-3, lambda _: 2e-3, (0.0, 0.99),
+                                   (0.0, 0.99))
+    state.g_optimizer = GANOptimizer(gen.parameters(), lambda _: 2e-3, (0.0, 0.99), eps=1.0)
+    state.d_optimizer = GANOptimizer(disc.parameters(), lambda _: 2e-3, (0.0, 0.99), eps=1.0)
+    size = CONFIG_256["image_size"]
+    real = torch.rand((4, size, size, 3), generator=torch.Generator().manual_seed(seed + 4))
+    gan = StyleGAN2Updater(state, {"images": iter([(real * 2 - 1).to(DEVICE)])}, batch_size=4,
+                           cfg=StyleGAN2Config(d_reg_every=1, g_reg_every=1), seed=seed,
+                           device=DEVICE)
+    metrics = {}
+    gan.report = lambda values, prefix="": metrics.update(
+        {k: float(v) for k, v in values.items()})
+    gan.update()
+    for key, module in (("generator", gen), ("discriminator", disc), ("g_ema", state.g_ema)):
+        out[key] = snapshot(module)
+    out["gan_metrics"] = metrics
+    return out
+
+
+def check_process_group_of_one() -> dict:
+    """The distributed route in a process group of world size 1 on NCCL
+    (the one card; world size 2 runs only in the CPU tests): a DocUFCN step
+    and a GAN iteration through it (BatchNorm by all-reduces, the gradients'
+    all-reduce, the minibatch stddev's all-gather, the global path-length
+    mean, the metrics' all-reduce), then the same single-process from the
+    same seeds, TF32 off and cuDNN deterministic: every tensor within 1e-5
+    of the larger of its largest element and the step's largest update of
+    that network (a zero-initialised bias moves by its update alone), the
+    metrics within 1e-5 relative."""
+    import torch.distributed as dist
+
+    from synthesis_in_style_tpu_torch.parallel import distributed
+
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        if not distributed.maybe_initialize_distributed(device="cuda"):
+            raise AssertionError("no process group opened")
+        backend = dist.get_backend()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grouped = _distributed_steps(SEED + 45)
+        torch.cuda.synchronize()
+        grouped_s = time.perf_counter() - t0
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        t0 = time.perf_counter()
+        single = _distributed_steps(SEED + 45)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.backends.cudnn.deterministic = False
+        _defaults()
+    if backend != "nccl":
+        raise AssertionError(f"process group backend {backend}, want nccl")
+    worst = {}
+    for key in ("docufcn", "generator", "discriminator", "g_ema"):
+        a, b, before = grouped[key], single[key], single[f"{key}_before"]
+        largest_update = max(float((b[k] - before[k]).abs().max()) for k in b
+                             if b[k].is_floating_point())
+        worst[key] = 0.0
+        for k in a:
+            if not a[k].is_floating_point():
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"process group of one, {key}: {k} differs")
+                continue
+            scale = max(float(b[k].abs().max()), largest_update)
+            err = float((a[k] - b[k]).abs().max()) / max(scale, 1e-30)
+            worst[key] = max(worst[key], err)
+            if err > 1e-5:
+                raise AssertionError(f"process group of one, {key}: {k} {err:.3g} of its "
+                                     f"largest from the single-process step")
+    for k, v in single["gan_metrics"].items():
+        got = grouped["gan_metrics"][k]
+        if abs(got - v) > 1e-5 * abs(v) + 1e-7:
+            raise AssertionError(f"process group of one: metric {k} {got} vs {v}")
+    return {"backend": backend, "init_s": init_s, "grouped_s": grouped_s,
+            "single_s": single_s, "worst_rel_err": worst, "gan_metrics": single["gan_metrics"]}
+
+
+def run_sustained_synthesis(run: Path, root: Path) -> dict:
+    """scripts/sustained_synthesis.py over the dataset CLI on the card
+    (--device-contours, batch BATCH, --quantize off): its JSONL series
+    (pairs written, the window's pairs/s, the CLI's RSS and open files) and
+    the overall rate, in a subprocess of its own (which ends with the CLI)."""
+    monitor = root / "sustained.jsonl"
+    cmd = [sys.executable, "-m", "synthesis_in_style_tpu_torch.scripts.sustained_synthesis",
+           str(run / "checkpoints" / "g_ema.pt"), str(run / "creation_config.json"),
+           "-n", str(SUSTAINED["num_images"]), "--interval", str(SUSTAINED["interval"]),
+           "--monitor-out", str(monitor), "--", "-b", str(BATCH), "--num-clusters",
+           str(NUM_CLUSTERS), "-d", DEVICE, "--device-contours"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sustained_synthesis exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in monitor.read_text().splitlines()]
+    summary = [line for line in proc.stdout.splitlines() if line.startswith("CLI exit")]
+    if not rows or not summary:
+        raise AssertionError(f"sustained_synthesis: no samples ({proc.stdout[-2000:]})")
+    return {"rows": rows, "summary": summary[-1], "seconds": seconds,
+            "max_rss_mb": max(r["rss_mb"] or 0 for r in rows),
+            "max_fds": max(r["fds"] or 0 for r in rows)}
+
+
+def options_phase(root: Path, run: Path, snap: Path, pages: Path, pages_gt: Path,
+                  fns: dict) -> dict:
+    """The int8 serving paths, DocUFCN remat, a process group of one on NCCL
+    and the sustained-synthesis run (module docstring, step 17)."""
+    steps = Steps()
+    synthesis = quantized_synthesis(run, root, fns)
+    steps.mark("quantized_synthesis")
+    # the kernel at the generator's shapes before anything reads its output
+    kernel = check_int8_conv(list(synthesis.pop("shapes")), timed=False)
+    synthesis["cluster_agreement"] = quantized_cluster_agreement(run)
+    steps.mark("agreement")
+    from PIL import Image
+
+    images = [Image.open(p).convert("RGB") for p in sorted(pages.glob("*.png"))]
+    page = quantized_pages(root, snap, images, pages, pages_gt, fns)
+    steps.mark("quantized_pages")
+    from synthesis_in_style_tpu_torch.ops.cuda.int8_conv import int8_conv_cuda
+
+    int8_conv_cuda.shapes.clear()
+    page["fitted_gate"] = check_quantized_docufcn_fitted()
+    fitted_shapes = list(int8_conv_cuda.shapes)
+    set_tf32(False)
+    try:
+        kernel = check_int8_conv(list(page.pop("shapes")) + fitted_shapes,
+                                 checked=kernel["shapes_checked"])
+    finally:
+        _defaults()
+    steps.mark("int8_kernel")
+    page["agreement"] = quantized_page_agreement(snap, images)
+    steps.mark("page_agreement")
+    remat = check_doc_ufcn_remat()
+    steps.mark("remat")
+    group = check_process_group_of_one()
+    steps.mark("process_group")
+    sustained = run_sustained_synthesis(run, root)
+    steps.mark("sustained")
+    log(f"int8_conv at {INT8_MAIN[0]} x {INT8_MAIN[1]}: {kernel['ms']:.4f} ms (queued "
+        f"{kernel['device_ms']:.4f}) against a bound of {kernel['bound_ms']:.4f} "
+        f"({kernel['bound_by']}; operations {kernel['ops_bound_ms']:.4f}); plain "
+        f"{kernel['plain_ms']:.3f}; _int_mm over im2col {kernel['library_ms']:.4f}, cuDNN "
+        f"float32 {kernel['library_cudnn_float32_ms']:.4f}, TF32 "
+        f"{kernel['library_cudnn_tf32_ms']:.4f}, bfloat16 {kernel['library_cudnn_bf16_ms']:.4f}; "
+        f"bit-exact at {len(kernel['shapes_checked'])} shapes")
+    log(f"quantized synthesis (--quantize, 256px, batch {BATCH}, {synthesis['written']} "
+        f"images): labelled images/s int8 {synthesis['images_per_s']}, float32 in turns "
+        f"{synthesis['float32_images_per_s']}; launches "
+        f"{synthesis['launches']} ({synthesis['forwards']} forwards); cluster labels vs float "
+        f"(TF32 off) {synthesis['cluster_agreement']}")
+    log("quantized pages (2048x1536, 0.7 / 55): " + "; ".join(
+        f"{k} {v['pages_per_s']:.3f} pages/s" for k, v in page["rates"].items())
+        + f"; class maps vs float32 at 0.0 / 0 (TF32 off) {page['agreement']}; the JAX "
+        f"package's fitted-model gate {page['fitted_gate']}; CLI --quantize "
+        f"{page['cli_seconds']:.3f} s, launches {page['cli_launches']}")
+    log(f"DocUFCN remat (batch {REMAT_BATCH}, 2 steps): gradients within "
+        f"{remat['worst_grad_rel_err']:.3g} of remat: false; peak allocated "
+        f"{remat['peak_bytes_plain'] / 2**30:.3f} GiB without, "
+        f"{remat['peak_bytes_remat'] / 2**30:.3f} GiB with")
+    log(f"process group of one ({group['backend']}, init {group['init_s']:.2f} s): DocUFCN "
+        f"step and GAN iteration {group['grouped_s']:.2f} s against {group['single_s']:.2f} s "
+        f"single-process, worst {group['worst_rel_err']}")
+    log(f"sustained_synthesis ({SUSTAINED['num_images']} images, every "
+        f"{SUSTAINED['interval']} s): {sustained['summary']}; samples {sustained['rows']}")
+    return {"synthesis": synthesis, "pages": page, "int8_conv": kernel, "remat": remat,
+            "process_group": group, "sustained": sustained, "seconds": steps.seconds}
+
+
+# ---------------------------------------------------------------------------
 # the phases: each names the phases whose outputs it needs, and returns its
 # result with `paths`: {path: (launch counts, kernels that must have run)}
 
@@ -6590,6 +7268,18 @@ def phase_autoencoder(ctx: Context) -> dict:
                             for leg in AUTOENCODER_LEGS}}
 
 
+def phase_options(ctx: Context) -> dict:
+    seg = ctx["segmenter"]
+    opt = options_phase(ctx.root, ctx["discovery"]["run"], Path(seg["snapshot"]),
+                        Path(seg["pages"]), Path(seg["pages_gt"]), ctx.fns)
+    ctx.add_kernel("int8_conv", {k: v for k, v in opt["int8_conv"].items()
+                                 if k != "shapes_checked"})
+    return {**opt, "paths": {
+        "quantized_synthesis": (opt["synthesis"]["launches"],
+                                ("fused_bias_act", "int8_conv", "segmented_cc")),
+        "quantized_pages": (opt["pages"]["cli_launches"], ("int8_conv", "segmented_cc"))}}
+
+
 def phase_evaluation(ctx: Context) -> dict:
     cap = ctx["capstone"]
     fixture = ctx.root / "fixture"
@@ -6627,6 +7317,7 @@ PHASES = (
     Phase("dataset_gan", "dataset_gan", ("training", "swagan_emanet"), phase_dataset_gan),
     Phase("capstone", "capstone", (), phase_capstone),
     Phase("autoencoder", "autoencoder", ("training",), phase_autoencoder),
+    Phase("options", "options", ("dataset", "segmenter"), phase_options),
     Phase("evaluation", "evaluation",
           ("dataset", "training", "segmenter", "capstone", "autoencoder"), phase_evaluation),
 )
@@ -6668,10 +7359,15 @@ KERNEL_SOURCES = {
                      "synthesis_in_style_tpu/ops/pallas/segmented_cc.py:158"),
     "flash_attention_fwd": ("csrc/flash_attention_f32.cuh", FLASH_TPU.format(758)),
     "flash_attention_bwd": ("csrc/flash_attention_f32.cuh",
-                            FLASH_TPU.format("1121 (bwd_dkv) and :1456 (bwd_dq)"))}
+                            FLASH_TPU.format("1121 (bwd_dkv) and :1456 (bwd_dq)")),
+    # a kernel of the port's own: the JAX package's int8 convolution is XLA's
+    "int8_conv": ("csrc/int8_conv.cu",
+                  "none (synthesis_in_style_tpu/ops/quant.py:67 int8_conv is "
+                  "lax.conv_general_dilated, an XLA op, no pallas_call)")}
 ROW_EXTRAS = ("fma_bound_ms", "library_kernels", "bf16_ms", "bf16_device_ms", "bf16_bound_ms",
               "bf16_plain_ms", "bf16_library_ms", "bf16_source", "page_ms", "page_plain_ms",
-              "page_bound_ms")
+              "page_bound_ms", "library_cudnn_float32_ms", "library_cudnn_tf32_ms",
+              "library_cudnn_bf16_ms")
 
 
 def kernel_rows(ctx: Context, phases: list) -> list:

@@ -26,7 +26,9 @@ pixels (0: the patch size; negative: exact tilings only).
 `fused_page_inference`, `pages_per_batch` and `serving_dtype` keys set the
 same.
 
-Not ported yet (raises NotImplementedError, see ROADMAP.md): `--quantize`.
+`--quantize` (or `quantize: true` in the config file) serves a DocUFCN with
+static w8a8 int8, calibrated on the first page; it excludes
+`--serving-dtype bfloat16`.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.analyze_image_segments <image_dir> \\
@@ -64,19 +66,6 @@ from synthesis_in_style_tpu_torch.utils.segmentation_utils import (
     segmentation_image_to_class_image,
 )
 from synthesis_in_style_tpu_torch.visualization.utils import network_output_to_color_image
-
-# flags (argparse dest, or model-config key) that this port does not serve yet
-NOT_PORTED_FLAGS = {
-    "quantize": "--quantize",
-}
-
-
-def check_supported(args: argparse.Namespace, model_config: dict) -> None:
-    for key, flag in NOT_PORTED_FLAGS.items():
-        if getattr(args, key, None) or model_config.get(key):
-            raise NotImplementedError(f"{flag} is not ported to synthesis_in_style_tpu_torch "
-                                      f"yet (see ROADMAP.md, Queue 1 item 10)")
-
 
 def create_hyperparam_configs(args) -> tuple:
     overlap = list(itertools.product(args.absolute_patch_overlap, args.patch_overlap_factor))
@@ -199,7 +188,6 @@ def main(args: argparse.Namespace) -> None:
     if serving_dtype not in (None, "float32", "f32") and (
             args.quantize or model_config.get("quantize")):
         raise ValueError("--serving-dtype and --quantize are mutually exclusive")
-    check_supported(args, model_config)
     segmenter = VotingAssemblySegmenter(
         model_config["checkpoint"],
         class_to_color_map=model_config["class_to_color_map"],
@@ -209,6 +197,7 @@ def main(args: argparse.Namespace) -> None:
             model_config.get("use_device_component_filter", False))),
         fused_page_inference=(args.fused_page_inference
                               or bool(model_config.get("fused_page_inference", False))),
+        quantized=bool(args.quantize or model_config.get("quantize", False)),
         serving_dtype=serving_dtype,
         device=args.device,
     )
@@ -361,7 +350,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "tiling on the card: patch cutting, forward, device component "
                         "filter, voting assembly). Implies the device component filter.")
     parser.add_argument("--quantize", action="store_true", default=False,
-                        help="not ported yet: raises NotImplementedError")
+                        help="Static w8a8 int8 serving of the patch forward (DocUFCN "
+                        "only): scales calibrated on the first page, int8 tensors "
+                        "between layers. Also 'quantize: true' in the config file.")
     parser.add_argument("--use-device-component-filter", action="store_true", default=False,
                         help="Run the small-component postprocess on the device "
                         "(union-find connected components) instead of the host "

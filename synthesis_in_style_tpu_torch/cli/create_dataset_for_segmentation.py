@@ -13,7 +13,8 @@ synthesis and masks are dispatched before batch i's host half runs.
 ensemble at `--classifier-path` instead (a few images at a time on the
 device, no image dropped).
 
-Not ported yet (it raises NotImplementedError, see ROADMAP.md): --quantize.
+`--quantize` (or `quantize: true` in the creation config) synthesizes with
+the w8a8 int8 generator (models/stylegan2.py `quantized`).
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.create_dataset_for_segmentation \\
@@ -53,18 +54,6 @@ from synthesis_in_style_tpu_torch.utils.dataset_creation import (
     save_generated_images,
 )
 from synthesis_in_style_tpu_torch.utils.png import read_png
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to synthesis_in_style_tpu_torch yet (see ROADMAP.md)"
-    )
-
-
-def check_supported(args: argparse.Namespace, creation_config: dict) -> None:
-    """Raise on every option this port does not implement yet."""
-    if getattr(args, "quantize", False) or creation_config.get("quantize", False):
-        raise _not_ported("--quantize")
 
 
 def get_dataset_segmenter(
@@ -110,10 +99,13 @@ def build_dataset(
     segmenter_type dataset_gan), drop the images the drop rules flag, and
     save the rest as PNG pairs until `num_images` are written. Returns the
     number written."""
-    check_supported(args, creation_config)
     device = torch.device(args.device)
     config = load_config_from_checkpoint(args.checkpoint, original_config_path)
     config["batch_size"] = args.batch_size
+    if creation_config.get("quantize", False) or getattr(args, "quantize", False):
+        # the int8 serving generator (ops/quant.py): a synthesis-time
+        # decision, so it comes from the creation config or the CLI
+        config["quantize"] = True
     image_save_base_dir, semantic_segmentation_base_dir = get_base_dirs(args)
 
     gen = load_generator(args.checkpoint, config, device=device)
@@ -263,7 +255,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--debug", action="store_true", default=False)
     parser.add_argument("--truncate", action="store_true", default=False)
     parser.add_argument("--quantize", action="store_true", default=False,
-                        help="not ported yet: raises NotImplementedError")
+                        help="synthesize with the w8a8 int8 generator (serving only)")
     parser.add_argument("--gray-fetch", action="store_true", default=False,
                         help="fetch one luminance channel from the device and "
                         "replicate it to RGB on the host")

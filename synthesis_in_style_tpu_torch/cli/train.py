@@ -23,8 +23,14 @@ manifests (`generate: true` regenerates the activations from `checkpoint`'s
 generator every epoch, `generate: false` reads them from `tensor_path`);
 its snapshots hold `network_<i>` / `optimizer_<i>`.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md): wandb
-logging and more than one process.
+More than one process: `torchrun --nproc-per-node N -m
+synthesis_in_style_tpu_torch.cli.train ...` (or torch.distributed.launch
+with `--local_rank`); `batch_size` is per process and each process trains
+on its shard of the training set, with the step of the global batch
+(BatchNorm over the global batch, gradients averaged:
+parallel/distributed.py). Rank 0 writes the run's files.
+
+Not ported yet (raises NotImplementedError, see ROADMAP.md): wandb logging.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.train <config.yaml> \\
@@ -41,7 +47,7 @@ import torch
 
 from synthesis_in_style_tpu_torch.cli.compat import (
     add_torch_compat_args,
-    check_single_process,
+    launch,
     warn_ignored_torch_args,
 )
 from synthesis_in_style_tpu_torch.cli.train_stylegan_2 import find_latest_resume, resolve_log_dir
@@ -56,6 +62,7 @@ from synthesis_in_style_tpu_torch.data.dataset_gan_dataset import build_dataset_
 from synthesis_in_style_tpu_torch.data.json_dataset import CachingLoader, resilient_loader
 from synthesis_in_style_tpu_torch.data.loader import make_loader, shutdown_workers
 from synthesis_in_style_tpu_torch.data.segmentation_dataset import AugmentedSegmentationDataset
+from synthesis_in_style_tpu_torch.parallel.distributed import is_main_process
 from synthesis_in_style_tpu_torch.training_builder import get_train_builder_class
 from synthesis_in_style_tpu_torch.utils.checkpoint import snapshot_iteration
 from synthesis_in_style_tpu_torch.utils.profiling import trace
@@ -86,7 +93,6 @@ def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
     if config.get("wandb_project_name"):
         raise _not_ported("wandb logging")
-    check_single_process(config.get("local_rank"))
     warn_ignored_torch_args(config)
 
 
@@ -106,7 +112,8 @@ def get_data_loader(json_path: Path, config: dict, args: argparse.Namespace,
     num_workers = 0 if args.debug else int(config.get("num_workers", 8))
     return make_loader(dataset, int(config["batch_size"]), shuffle=not validation,
                        drop_last=not validation, num_workers=num_workers,
-                       seed=int(config.get("seed", 0)), pin_memory=pin_memory)
+                       seed=int(config.get("seed", 0)), pin_memory=pin_memory,
+                       sharded=not validation)
 
 
 def main(args: argparse.Namespace) -> Trainer:
@@ -115,9 +122,10 @@ def main(args: argparse.Namespace) -> Trainer:
     config["log_dir"] = args.log_dir
     check_supported(config)
     sanity_check_config(config)
-    device = torch.device(config["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(config["device"]).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available")
+    device = launch(config)
+    config["device"] = str(device)
     seed = int(config.get("seed", 0))
     # 'latest' and an explicit snapshot both resume iteration and data position
     find_latest_resume(config, Path(args.log_dir))
@@ -147,7 +155,8 @@ def main(args: argparse.Namespace) -> Trainer:
         updater.iteration = resume_iteration
         if images is not None:
             images.seek(resume_iteration)
-    save_run_config(args.log_dir, config, args)
+    if is_main_process():
+        save_run_config(args.log_dir, config, args)
 
     evaluator = builder.get_evaluator()
     if evaluator is not None:

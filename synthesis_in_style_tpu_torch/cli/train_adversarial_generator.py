@@ -39,7 +39,7 @@ import torch
 
 from synthesis_in_style_tpu_torch.cli.compat import (
     add_torch_compat_args,
-    check_single_process,
+    launch,
     warn_ignored_torch_args,
 )
 from synthesis_in_style_tpu_torch.core.config import (
@@ -68,6 +68,7 @@ from synthesis_in_style_tpu_torch.models.factory import (
 )
 from synthesis_in_style_tpu_torch.models.stylegan1 import ProgressiveGenerator
 from synthesis_in_style_tpu_torch.models.stylegan2 import generator_channels
+from synthesis_in_style_tpu_torch.parallel.distributed import is_main_process
 from synthesis_in_style_tpu_torch.updaters.adversarial_updater import (
     AdversarialAutoencoderUpdater,
     AdversarialTrainState,
@@ -119,14 +120,13 @@ def make_optimizer(params, config: dict) -> GANOptimizer:
 
 def main(args: argparse.Namespace) -> Trainer:
     """Train as configured; returns the finished Trainer."""
-    check_single_process(getattr(args, "local_rank", None))
     warn_ignored_torch_args(args)
     config = load_config_from_checkpoint(args.autoencoder_checkpoint, args.config)
     if args.overwrite_config and args.config:
         config.update(load_config_file(args.config))
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available")
+    device = launch(args)
     log_dir = Path(args.log_dir)
     seed = int(config.get("seed", 0))
 
@@ -139,7 +139,7 @@ def main(args: argparse.Namespace) -> Trainer:
                                   num_channels=config.get("input_dim", 3))
         return make_loader(dataset, int(config["batch_size"]), shuffle=True, drop_last=True,
                            num_workers=0 if args.debug else int(config.get("num_workers", 8)),
-                           seed=seed, pin_memory=device.type == "cuda")
+                           seed=seed, pin_memory=device.type == "cuda", sharded=True)
 
     real_loader = loader(args.original_images)
     fake_loader = loader(args.fake_images)
@@ -168,7 +168,8 @@ def main(args: argparse.Namespace) -> Trainer:
         steps, state, {"original_images": real_stream, "binary_images": fake_stream},
         seed=seed, device=device)
     trainer = Trainer(updater, (int(config["max_iter"]), "iteration"), log_dir=log_dir)
-    save_run_config(log_dir, config, args)
+    if is_main_process():
+        save_run_config(log_dir, config, args)
 
     def save(t: Trainer, path: Path) -> None:
         s = t.updater.state

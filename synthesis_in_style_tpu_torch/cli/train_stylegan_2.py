@@ -27,8 +27,13 @@ dataset CLI), `log.jsonl`, sample grids and the divergence alarm.
 `stylegan_variant: swagan` (or `-s swagan`) trains SWAGAN
 (models/swagan.py); `-s 1` warns and trains StyleGAN2, as the JAX CLI does.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md): wandb
-logging and more than one process.
+More than one process: `torchrun --nproc-per-node N -m
+synthesis_in_style_tpu_torch.cli.train_stylegan_2 ...` (or
+torch.distributed.launch with `--local_rank`); `batch_size` is per process,
+as in the JAX CLI, and the step is that of the global batch
+(parallel/distributed.py). Rank 0 writes the run's files.
+
+Not ported yet (raises NotImplementedError, see ROADMAP.md): wandb logging.
 
 Usage:
   python -m synthesis_in_style_tpu_torch.cli.train_stylegan_2 <config.yaml> \\
@@ -49,7 +54,7 @@ import torch
 
 from synthesis_in_style_tpu_torch.cli.compat import (
     add_torch_compat_args,
-    check_single_process,
+    launch,
     warn_ignored_torch_args,
 )
 from synthesis_in_style_tpu_torch.core.config import (
@@ -76,6 +81,7 @@ from synthesis_in_style_tpu_torch.data.json_dataset import (
 from synthesis_in_style_tpu_torch.data.loader import EpochStream, make_loader
 from synthesis_in_style_tpu_torch.evaluation.fid import make_fid_extension
 from synthesis_in_style_tpu_torch.models.factory import get_discriminator, get_generator
+from synthesis_in_style_tpu_torch.parallel.distributed import data_parallel, is_main_process
 from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import (
     StyleGAN2Config,
     GANTrainState,
@@ -132,7 +138,6 @@ def check_supported(config: dict) -> None:
     """Raise on every option this port does not implement yet."""
     if config.get("wandb_project_name"):
         raise _not_ported("wandb logging")
-    check_single_process(config.get("local_rank"))
     warn_ignored_torch_args(config)
 
 
@@ -195,9 +200,9 @@ def main(args: argparse.Namespace) -> Trainer:
                       "trainer only dispatches swagan vs stylegan2)")
         config["stylegan_variant"] = 2
     check_supported(config)
-    device = torch.device(config["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(config["device"]).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available")
+    device = launch(config)
     log_dir = Path(config["log_dir"])
     seed = int(config.get("seed", 0))
 
@@ -210,9 +215,11 @@ def main(args: argparse.Namespace) -> Trainer:
                               image_size=config["image_size"],
                               num_channels=config.get("input_dim", 3))
     # the JAX loader's per-epoch order, which `seek` can resume into
+    # `batch_size` is per process: a launched run's processes each read
+    # their shard, a global batch of batch_size x world size
     loader = make_loader(dataset, int(config["batch_size"]), shuffle=True, drop_last=True,
                          num_workers=0 if args.debug else int(config.get("num_workers", 8)),
-                         seed=seed, pin_memory=device.type == "cuda")
+                         seed=seed, pin_memory=device.type == "cuda", sharded=True)
 
     init_rng = torch.Generator().manual_seed(seed)
     gen = get_generator(config).init_weights(init_rng).to(device)
@@ -246,13 +253,16 @@ def main(args: argparse.Namespace) -> Trainer:
         compute_dtype=config.get("compute_dtype"),
     )
     stream = EpochStream(loader, key="images")
-    updater = StyleGAN2Updater(state, {"images": stream}, batch_size=int(config["batch_size"]),
+    dp = data_parallel(int(config["batch_size"]))
+    updater = StyleGAN2Updater(state, {"images": stream},
+                               batch_size=dp.global_batch if dp else int(config["batch_size"]),
                                cfg=gan_cfg, seed=seed, device=device)
     if resume_iteration:
         updater.iteration = state.step = resume_iteration
         stream.seek(resume_iteration)
     trainer = Trainer(updater, (int(config["max_iter"]), "iteration"), log_dir=log_dir)
-    save_run_config(log_dir, config, args)
+    if is_main_process():
+        save_run_config(log_dir, config, args)
 
     def save(t: Trainer, path: Path) -> None:
         s = t.updater.state

@@ -1,6 +1,10 @@
 """Trainer extensions (counterpart of synthesis_in_style_tpu/core/extensions.py):
 snapshots, the jsonl log, learning-rate reports, sample images, evaluation
-and the collapse alarm."""
+and the collapse alarm.
+
+In a launched multi-process run every process runs every extension (the
+state and the reporter's means are the same on each), and only rank 0
+writes: snapshots, log lines, sample images and the alarm file."""
 
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 
 from synthesis_in_style_tpu_torch.core.trainer import Extension, Trainer
+from synthesis_in_style_tpu_torch.parallel.distributed import is_main_process
 from synthesis_in_style_tpu_torch.utils.png import write_png
 
 logger = logging.getLogger(__name__)
@@ -33,9 +38,10 @@ class Snapshotter(Extension):
 
     def run(self, trainer: Trainer):
         path = self.checkpoint_dir / f"iter_{trainer.updater.iteration:08d}.pt"
-        self.save_fn(trainer, path)
+        if is_main_process():
+            self.save_fn(trainer, path)
+            logger.info("snapshot saved to %s", path)
         self._last_saved_iteration = trainer.updater.iteration
-        logger.info("snapshot saved to %s", path)
 
     def finalize(self, trainer: Trainer):
         if self._last_saved_iteration != trainer.updater.iteration:
@@ -63,8 +69,9 @@ class LogWriter(Extension):
         rss = host_rss_gb()
         if rss is not None:
             means["host/rss_gb"] = rss
-        with open(self.log_path, "a") as f:
-            f.write(json.dumps(means) + "\n")
+        if is_main_process():
+            with open(self.log_path, "a") as f:
+                f.write(json.dumps(means) + "\n")
 
     def finalize(self, trainer: Trainer):
         self.run(trainer)
@@ -111,6 +118,8 @@ class ImagePlotter(Extension):
 
     def run(self, trainer: Trainer):
         image = np.asarray(self.render_fn(trainer))
+        if not is_main_process():
+            return
         self.image_dir.mkdir(parents=True, exist_ok=True)
         write_png(self.image_dir / f"iter_{trainer.updater.iteration:08d}.png", image)
 
@@ -185,7 +194,7 @@ class DivergenceAlarm(Extension):
         logger.error("DIVERGENCE ALARM [%s] at iteration %d: %s", kind, it, detail)
         print(f"*** DIVERGENCE ALARM [{kind}] at iteration {it}: {detail} ***", flush=True)
         trainer.reporter.add_observation({kind: 1.0}, prefix="alarm")
-        if self.log_dir:
+        if self.log_dir and is_main_process():
             self.log_dir.mkdir(parents=True, exist_ok=True)
             (self.log_dir / "alarm.json").write_text(json.dumps({
                 "kind": kind, "iteration": it, "detail": detail,

@@ -16,6 +16,8 @@ from typing import Any, Iterator, Optional
 import numpy as np
 from torch.utils.data import DataLoader, Sampler
 
+from synthesis_in_style_tpu_torch.parallel import distributed
+
 
 def shutdown_workers(loader: DataLoader) -> None:
     """End a loader's kept worker processes (a no-op without workers); the
@@ -80,23 +82,35 @@ class EpochShuffleSampler(Sampler):
     """The JAX DataLoader's order: epoch e visits
     `numpy.random.default_rng((seed, e)).permutation(n)` (or 0..n-1 without
     shuffle). Each pass advances the epoch; `seek` positions the next pass
-    `skip` samples into an epoch (preemption resume)."""
+    `skip` samples into an epoch (preemption resume).
 
-    def __init__(self, n: int, seed: int = 0, shuffle: bool = True):
+    Shard `shard_id` of `num_shards` (a process of a launched run) visits
+    every num_shards-th sample of that order from its own offset, the order
+    first padded with its own head so that every shard has as many samples
+    (the JAX loader's rule, torch's DistributedSampler's too)."""
+
+    def __init__(self, n: int, seed: int = 0, shuffle: bool = True, shard_id: int = 0,
+                 num_shards: int = 1):
         self.n = n
         self.seed = seed
         self.shuffle = shuffle
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.epoch = 0
         self._skip = 0
 
     def __len__(self) -> int:
-        return self.n
+        return -(-self.n // self.num_shards)
 
     def __iter__(self):
         if self.shuffle:
             order = np.random.default_rng((self.seed, self.epoch)).permutation(self.n)
         else:
             order = np.arange(self.n)
+        total = len(self) * self.num_shards
+        if total > self.n:
+            order = np.concatenate([order, order[: total - self.n]])
+        order = order[self.shard_id:: self.num_shards]
         skip, self._skip = self._skip, 0
         self.epoch += 1
         return iter(order[skip:].tolist())
@@ -106,12 +120,18 @@ class EpochShuffleSampler(Sampler):
 
 
 def make_loader(dataset, batch_size: int, shuffle: bool, drop_last: bool, num_workers: int,
-                seed: int = 0, pin_memory: bool = False) -> DataLoader:
+                seed: int = 0, pin_memory: bool = False, sharded: bool = False) -> DataLoader:
     """A torch DataLoader in the JAX DataLoader's sample order (shuffled
     per epoch from `seed`, or in order) with its `drop_last`, whose worker
     processes (if any) live until `shutdown_workers` or the loader's end.
-    Validation loaders are unsharded: the port trains in one process."""
+    `sharded` (a training loader): in a launched multi-process run, this
+    process's shard (its rank of the world size, parallel/distributed.py),
+    `batch_size` rows of it a batch; validation and evaluation loaders are
+    whole."""
+    shard_id, num_shards = ((distributed.get_rank(), distributed.get_world_size())
+                            if sharded else (0, 1))
     return DataLoader(dataset, batch_size=batch_size, drop_last=drop_last,
-                      sampler=EpochShuffleSampler(len(dataset), seed, shuffle),
+                      sampler=EpochShuffleSampler(len(dataset), seed, shuffle, shard_id,
+                                                  num_shards),
                       num_workers=num_workers, pin_memory=pin_memory,
                       persistent_workers=num_workers > 0)

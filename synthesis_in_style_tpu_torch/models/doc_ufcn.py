@@ -17,22 +17,52 @@ synthesis_in_style_tpu/models/doc_ufcn.py), NCHW.
 
 The JAX package's `s2d_stem`, `s2d_tail` and `dropout_rng_impl` re-lower the
 same function for the TPU's layout; the port takes those config keys and
-computes the plain layout. `remat` is not ported.
+computes the plain layout.
+
+`remat=True` recomputes each encoder and decoder block in the backward pass
+(`torch.utils.checkpoint`, non-reentrant, the RNG state preserved so that
+dropout draws the same masks), the blocks the JAX package wraps in
+`nn.remat`: only block-boundary tensors are kept. A memory lever, not a
+speed one. The recompute normalizes with the batch statistics as the
+forward did but leaves BatchNorm's running statistics alone, so they move
+once per step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from synthesis_in_style_tpu_torch.models.base_segmenter import SegmenterConfig
+from synthesis_in_style_tpu_torch.parallel import distributed
 
 ENCODER_DILATIONS = (1, 2, 4, 8, 16)
+
+# set while torch.utils.checkpoint recomputes a block of a remat DocUFCN
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = False
+
+
+def _remat_contexts():
+    """checkpoint's (forward, recompute) contexts: only the recompute is
+    flagged, so BatchNorm updates its running statistics once."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 class BiasedRunningVariance:
@@ -40,11 +70,28 @@ class BiasedRunningVariance:
     biased batch variance, as flax's does. The normalization is torch's own
     (cuDNN on the card); after it, the running variance is corrected from
     torch's unbiased update by the factor (n - 1) / n on the part that
-    update added."""
+    update added. In a launched multi-process run, training normalizes with
+    the global batch's statistics (parallel/distributed.py
+    `global_batch_norm`) and the running statistics move towards them."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        recompute = getattr(_RECOMPUTE, "active", False)
+        if distributed.is_initialized():
+            # a launched run: the statistics of the global batch
+            y, mean, var = distributed.global_batch_norm(x, self.weight, self.bias, self.eps)
+            if not recompute:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                    self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+                    self.num_batches_tracked.add_(1)
+            return y
+        if recompute:
+            # a remat block's recompute: the same call on copies of the
+            # statistics, which are then dropped (the output uses the batch's)
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
         n = x.numel() // x.shape[1]
         # torch's update goes into a copy (autograd keeps the tensor it was
         # given); the corrected value then goes into the buffer
@@ -118,9 +165,7 @@ class DocUFCN(nn.Module):
                  pixel_shuffle: bool = False, remat: bool = False,
                  s2d_stem: int = 0, s2d_tail: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "DocUFCN remat is not ported to synthesis_in_style_tpu_torch (see ROADMAP.md)")
+        self.remat = remat
         # s2d_stem / s2d_tail are exact TPU re-lowerings of this same
         # function: accepted, and the plain layout is computed
         self.num_classes = num_classes
@@ -153,6 +198,12 @@ class DocUFCN(nn.Module):
                                min_contour_area=min_contour_area,
                                num_input_channels=self.input_channels)
 
+    def _block(self, block: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, h, use_reentrant=False, preserve_rng_state=True,
+                              context_fn=_remat_contexts)
+        return block(h)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skips = []
         h = x
@@ -160,9 +211,9 @@ class DocUFCN(nn.Module):
             if i > 0:
                 skips.append(h)
                 h = F.max_pool2d(h, 2, 2)
-            h = block(h)
+            h = self._block(block, h)
         for block, skip in zip(self.decoder_blocks, reversed(skips)):
-            h = torch.cat([block(h), skip], dim=1)
+            h = torch.cat([self._block(block, h), skip], dim=1)
         return self.classifier(h)
 
     @torch.no_grad()

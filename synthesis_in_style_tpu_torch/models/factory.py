@@ -31,7 +31,8 @@ def _variant(config: Dict[str, Any], variant: Optional[Union[str, int]]) -> str:
 def get_generator(config: Dict[str, Any], variant: Optional[Union[str, int]] = None
                   ) -> nn.Module:
     """Generator from a training config (`image_size`, `latent_size`,
-    `n_mlp`, `channel_multiplier` (not StyleGAN1), `stylegan_variant`)."""
+    `n_mlp`, `channel_multiplier` and `quantize` (not StyleGAN1),
+    `stylegan_variant`)."""
     variant = _variant(config, variant)
     if variant == "1":
         return stylegan1.StyledGenerator(size=config["image_size"],
@@ -43,6 +44,8 @@ def get_generator(config: Dict[str, Any], variant: Optional[Union[str, int]] = N
         style_dim=config.get("latent_size", 512),
         n_mlp=config.get("n_mlp", 8),
         channel_multiplier=config.get("channel_multiplier", 2),
+        # the int8 serving path (ops/quant.py), a synthesis-time key
+        quantized=bool(config.get("quantize", False)),
     )
 
 

@@ -24,6 +24,13 @@ synthesis_in_style_tpu/models/stylegan2.py).
 * Every fused op is an autograd Function that runs its kernel on the card in
   both directions (ops/fused_act.py, ops/cuda/fused_blur.py), so training
   differentiates the same kernels, twice for R1 and path length.
+* `quantized` (serving only, as in the JAX package): every modulated conv
+  without an lhs dilation, i.e. each non-upsampling StyledConv's 3x3, runs
+  as a w8a8 int8 convolution (ops/quant.py `conv2d_w8a8`, the int8 kernel on
+  the card); demodulation statistics still come from the float weights, the
+  upsampling convs and ToRGB stay float, and the upsampling StyledConvs take
+  the unfused tail (upfirdn2d blur, demodulation, noise, bias-act kernel)
+  instead of the fused blur kernel. The parameters are the same.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ from torch import nn
 
 from synthesis_in_style_tpu_torch.ops.cuda.fused_blur import blur_demod_noise_bias_act
 from synthesis_in_style_tpu_torch.ops.fused_act import fused_leaky_relu
+from synthesis_in_style_tpu_torch.ops.quant import conv2d_w8a8
 from synthesis_in_style_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d, upsample_2d
+from synthesis_in_style_tpu_torch.parallel.distributed import all_gather_batch, local_batch_slice
 
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -89,12 +98,15 @@ class ModulatedConv2d(nn.Module):
     demodulated (B, H, W, C) output."""
 
     def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
-                 style_dim: int, demodulate: bool = True, upsample: bool = False):
+                 style_dim: int, demodulate: bool = True, upsample: bool = False,
+                 quantized: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
         self.out_channel = out_channel
         self.demodulate = demodulate
         self.upsample = upsample
+        # w8a8 int8 conv where there is no lhs dilation (not the upsampling one)
+        self.quantized = quantized
         self.scale = 1.0 / math.sqrt(in_channel * kernel_size**2)
         self.weight = nn.Parameter(torch.empty(1, out_channel, in_channel, kernel_size, kernel_size))
         self.modulation = EqualLinear(style_dim, in_channel, bias_init=1.0)
@@ -114,7 +126,10 @@ class ModulatedConv2d(nn.Module):
             # conv_transpose2d(stride 2) with the unflipped (in, out, kh, kw) weight
             out = F.conv_transpose2d(_nchw(x), w.transpose(0, 1), stride=2)
             return _nhwc(out), demod
-        out = _nhwc(F.conv2d(_nchw(x), w, padding=self.kernel_size // 2))
+        if self.quantized:
+            out = conv2d_w8a8(x, w.permute(2, 3, 1, 0), padding=self.kernel_size // 2)
+        else:
+            out = _nhwc(F.conv2d(_nchw(x), w, padding=self.kernel_size // 2))
         if demod is not None:
             out = out * demod[:, None, None, :].to(out.dtype)
         return out, demod
@@ -148,30 +163,39 @@ class StyledConv(nn.Module):
     """ModulatedConv2d -> noise -> bias + LeakyReLU * sqrt(2).
 
     Upsampling: the transposed conv, then ONE fused-blur kernel pass for
-    blur, demodulation, noise, bias and activation. Otherwise: the conv
-    (demodulated), the noise add, then the fused bias-act kernel."""
+    blur, demodulation, noise, bias and activation (`quantized`: the
+    unfused tail, as the JAX package's `_fused_eligible` is False there).
+    Otherwise: the conv (demodulated), the noise add, then the fused
+    bias-act kernel."""
 
     def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
                  style_dim: int, upsample: bool = False,
-                 blur_kernel: Sequence[int] = (1, 3, 3, 1)):
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1), quantized: bool = False):
         super().__init__()
         if upsample and (kernel_size != 3 or len(blur_kernel) != 4):
             raise ValueError("the fused upsample tail takes a 3x3 conv and a 4-tap blur")
         self.upsample = upsample
+        self.quantized = quantized
         self.conv = ModulatedConv2d(in_channel, out_channel, kernel_size, style_dim,
-                                    upsample=upsample)
+                                    upsample=upsample, quantized=quantized and not upsample)
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_channel)
         gain = 2.0  # per-axis sqrt(upsample factor ** 2)
         self.taps = tuple(gain * float(t) / sum(blur_kernel) for t in blur_kernel)
+        self.register_buffer("blur", make_kernel(list(blur_kernel)) * gain**2,
+                             persistent=False)
 
     def forward(self, x: torch.Tensor, style: torch.Tensor,
                 noise: torch.Tensor) -> torch.Tensor:
         out, demod = self.conv(x, style)
         bias = self.activate.bias.to(out.dtype)
-        if self.upsample:
+        if self.upsample and not self.quantized:
             plane = self.noise.plane(noise, torch.float32)
             return blur_demod_noise_bias_act(out, demod, plane, bias, self.taps)
+        if self.upsample:
+            out = upfirdn2d(out, self.blur, pad=(1, 1))
+            if demod is not None:
+                out = out * demod[:, None, None, :].to(out.dtype)
         out = out + self.noise.weight.to(out.dtype) * noise.to(out.dtype)
         return fused_leaky_relu(out, bias)
 
@@ -242,9 +266,11 @@ class Generator(nn.Module):
 
     def __init__(self, size: int, style_dim: int, n_mlp: int,
                  channel_multiplier: int = 2,
-                 blur_kernel: Sequence[int] = (1, 3, 3, 1), lr_mlp: float = 0.01):
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1), lr_mlp: float = 0.01,
+                 quantized: bool = False):
         super().__init__()
         self.size = size
+        self.quantized = quantized
         self.style_dim = style_dim
         self.log_size = self._log_size(size)
         self.num_layers = (self.log_size - 2) * 2 + 1
@@ -259,7 +285,8 @@ class Generator(nn.Module):
         )
         self.input = nn.Module()
         self.input.input = nn.Parameter(torch.empty(1, channels[4], 4, 4))
-        self.conv1 = StyledConv(channels[4], channels[4], 3, style_dim, blur_kernel=blur_kernel)
+        self.conv1 = StyledConv(channels[4], channels[4], 3, style_dim, blur_kernel=blur_kernel,
+                                quantized=quantized)
         self.to_rgb1 = self._to_rgb(channels[4], style_dim)
 
         self.convs = nn.ModuleList()
@@ -268,9 +295,10 @@ class Generator(nn.Module):
         for res_log in range(3, self.log_size + 1):
             out_channel = channels[2**res_log]
             self.convs.append(StyledConv(in_channel, out_channel, 3, style_dim,
-                                         upsample=True, blur_kernel=blur_kernel))
+                                         upsample=True, blur_kernel=blur_kernel,
+                                         quantized=quantized))
             self.convs.append(StyledConv(out_channel, out_channel, 3, style_dim,
-                                         blur_kernel=blur_kernel))
+                                         blur_kernel=blur_kernel, quantized=quantized))
             self.to_rgbs.append(self._to_rgb(out_channel, style_dim))
             in_channel = out_channel
 
@@ -483,13 +511,21 @@ class ResBlock(nn.Module):
 def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_features: int = 1) -> torch.Tensor:
     """Append the minibatch-stddev channel to an NHWC tensor: per group of
     `group_size` samples, the biased standard deviation over the group,
-    averaged over H, W and the channels of each feature, in float32."""
-    b, h, w, c = x.shape
+    averaged over H, W and the channels of each feature, in float32. The
+    groups are strided over the global batch, as in the JAX package's
+    sharded step: in a launched multi-process run the statistic is taken
+    over every process's rows (a differentiable all-gather) and this
+    process keeps its own."""
+    local_b, h, w, c = x.shape
+    full = all_gather_batch(x)
+    b = full.shape[0]
     group = min(b, group_size)
-    y = x.reshape(group, -1, h, w, num_features, c // num_features).float()
+    y = full.reshape(group, -1, h, w, num_features, c // num_features).float()
     std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
     mean_std = std.mean(dim=(1, 2, 4)).repeat(group, 1)  # (B, num_features)
-    stat = mean_std[:, None, None, :].expand(b, h, w, num_features).to(x.dtype)
+    if b != local_b:
+        mean_std = mean_std[local_batch_slice(b)]
+    stat = mean_std[:, None, None, :].expand(local_b, h, w, num_features).to(x.dtype)
     return torch.cat([x, stat], dim=-1)
 
 

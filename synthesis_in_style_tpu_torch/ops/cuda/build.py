@@ -24,7 +24,8 @@ from typing import Dict, Sequence, Tuple
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernel_build"
-KERNEL_SOURCES = ("fused_bias_act", "fused_blur", "segmented_cc", "flash_attention")
+KERNEL_SOURCES = ("fused_bias_act", "fused_blur", "segmented_cc", "flash_attention",
+                  "int8_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

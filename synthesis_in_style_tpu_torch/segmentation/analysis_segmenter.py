@@ -36,8 +36,13 @@ through the flash kernel when its config says `attention_impl: flash`;
 EMANet's pages use the snapshot's µ bases, `emau.mu`, where the JAX
 package's page path falls back to the initial µ).
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md): the mesh
-and `quantized`.
+`quantized=True` serves DocUFCN with static w8a8 int8
+(models/doc_ufcn_quant.py): the first page calibrates the activation scales
+on up to four of its patch batches through the float network, which is then
+replaced by the quantized one; every int8 conv is the kernel of
+`csrc/int8_conv.cu`, on the unfused and the fused (CUDA graph) route alike.
+
+Not ported yet (raises NotImplementedError, see ROADMAP.md): the mesh.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import torch
 
 from synthesis_in_style_tpu_torch.core.config import load_config_from_checkpoint
 from synthesis_in_style_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd_cuda
+from synthesis_in_style_tpu_torch.ops.cuda.int8_conv import int8_conv_cuda
 from synthesis_in_style_tpu_torch.ops.cuda.segmented_cc import connected_components_cuda
 from synthesis_in_style_tpu_torch.models.base_segmenter import (
     SegmenterConfig,
@@ -151,7 +157,8 @@ class PageProgram:
     and counts them apart (`captured`): `cc_labellings_per_replay` is that
     count, and each replay adds it to the wrapper's count of launches, since
     a replay is where those kernels run. The flash attention forward's
-    wrapper is counted the same way (`flash_launches_per_replay`).
+    and the int8 convolution's wrappers are counted the same way
+    (`flash_launches_per_replay`, `int8_launches_per_replay`).
     `replays` counts the replays."""
 
     def __init__(self, body: Callable, n_pages: int, padded_shape: Tuple[int, int, int],
@@ -165,6 +172,7 @@ class PageProgram:
         self.replays = 0
         self.cc_labellings_per_replay = 0
         self.flash_launches_per_replay = 0
+        self.int8_launches_per_replay = 0
         self._body = body
         self._graph = None
         if device.type == "cuda":
@@ -185,13 +193,15 @@ class PageProgram:
                 self._body(*self._inputs())
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = connected_components_cuda.captured, flash_attention_fwd_cuda.captured
+        before = (connected_components_cuda.captured, flash_attention_fwd_cuda.captured,
+                  int8_conv_cuda.captured)
         # thread_local: other threads of the process (loader pin-memory
         # threads, PNG writers) may use CUDA meanwhile
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             self.output = self._body(*self._inputs())
         self.cc_labellings_per_replay = connected_components_cuda.captured - before[0]
         self.flash_launches_per_replay = flash_attention_fwd_cuda.captured - before[1]
+        self.int8_launches_per_replay = int8_conv_cuda.captured - before[2]
         self._graph = graph
 
     def run(self, min_confidence: torch.Tensor, min_contour_area: torch.Tensor
@@ -207,6 +217,7 @@ class PageProgram:
         self.replays += 1
         connected_components_cuda.launches += self.cc_labellings_per_replay
         flash_attention_fwd_cuda.launches += self.flash_launches_per_replay
+        int8_conv_cuda.launches += self.int8_launches_per_replay
         return self.output
 
 
@@ -233,8 +244,9 @@ class AnalysisSegmenter:
         if self.serving_dtype is not None and quantized:
             # the w8a8 path calibrates against the float master weights
             raise ValueError("serving_dtype and quantized are mutually exclusive")
-        if quantized:
-            raise _not_ported("quantized serving", "Queue 1 item 10")
+        # w8a8 serving calibrates on the first page (`_maybe_calibrate_quant`)
+        self.quantized = quantized
+        self._quant_calibrated = not quantized
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda, but no CUDA device is available")
@@ -634,12 +646,36 @@ class AnalysisSegmenter:
 
     def _prepare_page(self, image):
         """The page in the network's colour mode, shrunk to max_image_size;
-        the caller's image is never changed."""
+        the caller's image is never changed. The first page calibrates the
+        quantized network."""
         page = self.convert_image_to_correct_color_space(image)
         if self.max_image_size and any(side > self.max_image_size for side in page.size):
             page = page.copy() if page is image else page
             page.thumbnail((self.max_image_size, self.max_image_size))
+        self._maybe_calibrate_quant(page)
         return page
+
+    @torch.no_grad()
+    def _maybe_calibrate_quant(self, page) -> None:
+        """First use of the w8a8 path: the float network's per-channel
+        activation ranges over up to 4 patch batches of this page, then the
+        quantized network in its place and no page program kept."""
+        if self._quant_calibrated:
+            return
+        from synthesis_in_style_tpu_torch.models.doc_ufcn import DocUFCN
+        from synthesis_in_style_tpu_torch.models.doc_ufcn_quant import quantize_for_serving
+
+        if not isinstance(self.network, DocUFCN):
+            raise ValueError("quantized=True serving currently supports DocUFCN networks "
+                             f"only, got {type(self.network).__name__}")
+        batches = []
+        for batch in self.crop_and_batch_patches(page):
+            batches.append(((batch["images"].float() / 255.0 - 0.5) / 0.5).permute(0, 3, 1, 2))
+            if len(batches) >= 4:
+                break
+        self.network = quantize_for_serving(self.network, batches)
+        self._programs.clear()
+        self._quant_calibrated = True
 
     def segment_image_tensor(self, image) -> torch.Tensor:
         """A PIL page -> its (H, W, C) assembled confidences on the device

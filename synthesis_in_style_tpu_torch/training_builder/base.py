@@ -8,6 +8,11 @@ A snapshot is `<log_dir>/checkpoints/iter_<N>.pt` holding
 optimizer's state: DocUFCN's Adam, TransUNet's and EMANet's SGD).
 `--fine-tune` loads the network only; `--resume-ckpt` loads both and the
 iteration.
+
+In a launched multi-process run every process builds the same network from
+the same seed, its train loader is its shard (cli/train.py), and the
+optimizers average the gradients (parallel/distributed.py), so the replicas
+stay equal; only rank 0 writes snapshots and images (core/extensions.py).
 """
 
 from __future__ import annotations

@@ -12,6 +12,10 @@
   gradient goes to every parameter of the generation autoencoder, its
   decoder included.
 * mask = 1 - (binary + 1) / 2 of the first channel, without gradient.
+* In a launched multi-process run each process steps on its shard: the
+  optimizers average the gradients, BatchNorm and the discriminator's
+  minibatch stddev span the global batch (parallel/distributed.py), the
+  reported metrics are averaged; each process draws its own noise.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from torch import nn
 
 from synthesis_in_style_tpu_torch.core.updater import Updater
 from synthesis_in_style_tpu_torch.losses.gan import r1_penalty
+from synthesis_in_style_tpu_torch.parallel import distributed
 from synthesis_in_style_tpu_torch.updaters.stylegan2_updater import GANOptimizer
 
 DEFAULT_LOSS_WEIGHTS = {
@@ -113,6 +118,6 @@ class AdversarialAutoencoderUpdater(Updater):
         d_metrics = self.steps["d_step"](self.state, binary, style, self.rng)
         if self.iteration % self.d_interval == 0:
             d_metrics.update(self.steps["d_reg_step"](self.state, style))
-        self.report(d_metrics, prefix="discriminator")
-        self.report(self.steps["g_step"](self.state, binary, style, self.rng),
-                    prefix="generator")
+        self.report(distributed.reduce_metrics(d_metrics), prefix="discriminator")
+        self.report(distributed.reduce_metrics(
+            self.steps["g_step"](self.state, binary, style, self.rng)), prefix="generator")

@@ -18,6 +18,11 @@ and EMANet's cross-entropy step with the moving average of its µ bases
   over three parameter groups.
 * Dropout draws from torch's default generator, seeded from (seed,
   iteration) at each step, so a resumed run draws what a straight run did.
+* In a launched multi-process run (parallel/distributed.py) each process
+  steps on its shard: BatchNorm, the weighted cross-entropy's normalizer,
+  Dice's sums and EMANet's µ mean are those of the global batch, the
+  optimizers average the gradients, and the reported losses are averaged
+  over the processes. (A shard draws its own dropout masks.)
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 
 from synthesis_in_style_tpu_torch.core.updater import Updater, iteration_seed
 from synthesis_in_style_tpu_torch.losses.segmentation import cross_entropy_loss, dice_loss
+from synthesis_in_style_tpu_torch.parallel import distributed
 
 
 def cast_params(network: nn.Module, dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
@@ -113,7 +119,8 @@ def emanet_train_step(network: nn.Module, optimizer, batch: Dict[str, torch.Tens
     _apply_gradients(optimizer, loss)
     with torch.no_grad():
         mu = network.emau.mu
-        mu.copy_(mu * em_mom + mu_batch.float().mean(dim=0, keepdim=True) * (1 - em_mom))
+        mu_mean = distributed.all_reduce_mean(mu_batch.float().mean(dim=0, keepdim=True))
+        mu.copy_(mu * em_mom + mu_mean * (1 - em_mom))
     return {"softmax": loss.detach()}
 
 
@@ -150,8 +157,10 @@ class SGDOptimizer:
 
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        """One update from `grads` (in `params` order), averaged over the
+        processes of a launched run first."""
         lr = self.schedule(self.count)
-        for p, g in zip(self.params, grads):
+        for p, g in zip(self.params, distributed.average_gradients(grads)):
             p.grad = torch.zeros_like(p) if g is None else g
         for group in self.sgd.param_groups:
             group["lr"] = lr * group.get("lr_scale", 1.0)  # older snapshots have none
@@ -204,4 +213,4 @@ class SegmentationUpdater(Updater):
         labels = batch["segmented"].to(self.device, non_blocking=True)
         torch.manual_seed(iteration_seed(self.seed, self.iteration))
         metrics = self.step({"images": images, "segmented": labels})
-        self.report(metrics, prefix="loss")
+        self.report(distributed.reduce_metrics(metrics), prefix="loss")

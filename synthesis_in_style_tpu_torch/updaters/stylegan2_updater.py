@@ -21,6 +21,12 @@ iterations, EMA last.
   of a schedule evaluated at the 0-based update count (optax.adam). A
   parameter the loss does not reach gets a zero gradient, so every Adam
   state advances together, as optax's single count does.
+* In a launched multi-process run (parallel/distributed.py) each process
+  steps on its shard of the global batch: every process draws the global
+  batch's randoms from the same generator and keeps its rows
+  (`local_draws`), the optimizers average the gradients, the discriminator's
+  minibatch stddev spans the global batch, the path-length mean is the
+  global one, and the reported metrics are averaged over the processes.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from torch import nn
 
 from synthesis_in_style_tpu_torch.core.updater import Updater
+from synthesis_in_style_tpu_torch.parallel import distributed
 from synthesis_in_style_tpu_torch.losses.gan import (
     d_logistic_loss,
     g_nonsaturating_loss,
@@ -87,6 +94,9 @@ class GANOptimizer:
 
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        """One update from `grads` (in `params` order), averaged over the
+        processes of a launched run first."""
+        grads = distributed.average_gradients(grads)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         # optax: t if norm < max_norm else t / norm * max_norm
@@ -176,6 +186,16 @@ def draw_path(rng: torch.Generator, gen: nn.Module, batch_size: int,
     return mix, pl_noise
 
 
+def local_draws(draws: MixDraws, global_batch: int) -> MixDraws:
+    """This process's rows of draws made for the global batch (all of them
+    in a single process); a stored noise buffer (batch 1) is shared."""
+    if distributed.get_world_size() == 1:
+        return draws
+    rows = distributed.local_batch_slice(global_batch)
+    return MixDraws(draws.z1[rows], draws.z2[rows], draws.inject_index,
+                    [n[rows] if n.shape[0] == global_batch else n for n in draws.noise])
+
+
 def _cast(module: nn.Module, dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
     """{name: tensor} of `module`'s parameters and buffers, the floating ones
     cast to `dtype` (differentiably) when it is given."""
@@ -253,7 +273,9 @@ def g_reg_step(state: GANTrainState, cfg: StyleGAN2Config, draws: MixDraws,
     (grad_lat,) = torch.autograd.grad((image * pl_noise).sum(), latent, create_graph=True)
     path_lengths = grad_lat.square().sum(dim=2).mean(dim=1).sqrt()
     mpl = state.mean_path_length
-    path_mean = mpl + 0.01 * (path_lengths.mean() - mpl)
+    # the mean over the global batch (of equal shards), with its gradient
+    global_mean = distributed.global_sum(path_lengths.mean()) / distributed.get_world_size()
+    path_mean = mpl + 0.01 * (global_mean - mpl)
     path_loss = (path_lengths - path_mean).square().mean()
     # 0 * image keeps every parameter in the graph
     weighted = cfg.path_reg_weight * cfg.g_reg_every * path_loss + 0.0 * image[0, 0, 0, 0]
@@ -283,14 +305,23 @@ class StyleGAN2Updater(Updater):
         self.cfg = cfg or StyleGAN2Config()
 
     def update_core(self):
+        """`batch_size` is the global batch; `real` this process's shard."""
         cfg, state, gen = self.cfg, self.state, self.state.generator
         real = self.next_batch("images").to(self.device, non_blocking=True)
+        world = distributed.get_world_size()
         metrics = {}
-        metrics.update(d_step(state, cfg, real, draw_mix(self.rng, gen, real.shape[0], cfg)))
+        d_batch = real.shape[0] * world
+        metrics.update(d_step(state, cfg, real,
+                              local_draws(draw_mix(self.rng, gen, d_batch, cfg), d_batch)))
         if cfg.d_reg_every > 0 and self.iteration % cfg.d_reg_every == 0:
             metrics.update(d_reg_step(state, cfg, real))
-        metrics.update(g_step(state, cfg, draw_mix(self.rng, gen, self.batch_size, cfg)))
+        metrics.update(g_step(state, cfg, local_draws(
+            draw_mix(self.rng, gen, self.batch_size, cfg), self.batch_size)))
         if cfg.g_reg_every > 0 and self.iteration % cfg.g_reg_every == 0:
-            metrics.update(g_reg_step(state, cfg, *draw_path(self.rng, gen, self.batch_size, cfg)))
+            mix, pl_noise = draw_path(self.rng, gen, self.batch_size, cfg)
+            path_batch = pl_noise.shape[0]
+            if world > 1:
+                pl_noise = pl_noise[distributed.local_batch_slice(path_batch)]
+            metrics.update(g_reg_step(state, cfg, local_draws(mix, path_batch), pl_noise))
         ema_step(state, cfg)
-        self.report(metrics, prefix="train")
+        self.report(distributed.reduce_metrics(metrics), prefix="train")

@@ -8,8 +8,10 @@
   one warning for the backend), passes `train`'s and the adversarial CLI's
   checks (`--local_rank 0` is silent in all three, as in the JAX package),
   and `-d cuda` on the adversarial CLI reaches its device check;
-* a positive rank, or WORLD_SIZE above 1, raises NotImplementedError naming
-  ROADMAP item 11."""
+* more than one process is the launch (parallel/distributed.py): an
+  announced launch passes the CLIs' checks silently and `compat.launch`
+  opens its process group; a positive `--local_rank` without the
+  launcher's environment raises."""
 
 import argparse
 import importlib
@@ -69,6 +71,7 @@ def test_port_accepts_every_option_of_the_jax_cli(name, monkeypatch):
 @pytest.mark.parametrize("config", [{}, {"local_rank": 0}, {"local_rank": None}])
 def test_single_process_launch_is_silent_in_both_training_clis(config, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         port_train.check_supported(config)
@@ -80,20 +83,52 @@ def test_single_process_launch_is_silent_in_both_training_clis(config, monkeypat
 
 
 @pytest.mark.parametrize("check", [port_train.check_supported, port_gan.check_supported,
-                                   lambda c: compat.check_single_process(c.get("local_rank"))])
+                                   compat.launch])
 def test_more_than_one_process_raises_naming_item_11(check, monkeypatch):
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        check({"local_rank": 1, "mpi_backend": "nccl"})
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        check({})
+    """More than one process (ROADMAP item 11, once unported) is now the
+    launch. The CLIs' checks pass an announced launch without a warning for
+    its backend; `compat.launch` raises for a positive --local_rank that no
+    launcher announced, and opens the process group of an announced one (a
+    gloo group of one process here) and returns the process's device."""
+    import torch.distributed as dist
+
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    if check is compat.launch:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            check({"local_rank": 1, "mpi_backend": "gloo", "device": "cpu"})
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    if check is not compat.launch:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            check({"local_rank": 0, "mpi_backend": "nccl"})
+        return
+    try:
+        assert str(check({"local_rank": 0, "mpi_backend": "gloo", "device": "cpu"})) == "cpu"
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        assert dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def test_reference_launch_line_trains_the_gan(tmp_path, monkeypatch):
     from tests.test_torch_gan_training import _run_cli, _write_run_inputs
 
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
     data = _write_run_inputs(tmp_path, n_images=2)
     config = json.loads((data / "config.json").read_text())
     (data / "config.json").write_text(json.dumps({**config, "compute_dtype": None}))
@@ -104,6 +139,8 @@ def test_reference_launch_line_trains_the_gan(tmp_path, monkeypatch):
 
 def test_adversarial_cli_takes_a_reference_launch_line(tmp_path, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
     monkeypatch.setattr(port_adv.torch.cuda, "is_available", lambda: False)
     line = ["c.yaml", "ae.pt", "-o", "real.json", "-f", "fake.json", "-d", "cuda",
             "--local_rank", "0", "--mpi-backend", "nccl"]
@@ -114,6 +151,8 @@ def test_adversarial_cli_takes_a_reference_launch_line(tmp_path, monkeypatch):
     with pytest.warns(UserWarning, match="--mpi-backend nccl"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_adv.main(args)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_adv.main(port_adv.build_parser().parse_args(line[:-4] + ["--local_rank", "1"]))
+    # a positive rank that no launcher announced: the launch refuses it
+    with pytest.raises(RuntimeError, match="torchrun"):
+        port_adv.main(port_adv.build_parser().parse_args(
+            line[:-5] + ["cpu", "--local_rank", "1"]))
     assert port_adv.build_parser().parse_args(line[:6]).device == "cuda"

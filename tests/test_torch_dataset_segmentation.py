@@ -201,12 +201,27 @@ def test_cli_writes_dataset(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--quantize"], ["--device-contours", "--quantize"],
-                                   ["--contour-workers", "2", "--quantize"]])
-def test_cli_unported_options_raise(tmp_path, extra):
-    _, argv = _cli_run(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cds.build_dataset(cds.build_parser().parse_args(argv + extra),
-                          json.loads(open(argv[1]).read()))
+                                   ["--contour-workers", "2", "--quantize"], []])
+def test_cli_unported_options_raise(tmp_path, extra, monkeypatch):
+    """`--quantize` (once unported, now the w8a8 generator) runs on each
+    back half, and `quantize: true` in the creation config does the same;
+    without either the generator stays float."""
+    from synthesis_in_style_tpu_torch.models import factory
+
+    built = []
+    real = factory.get_generator
+    monkeypatch.setattr(factory, "get_generator",
+                        lambda config, *a, **k: built.append(real(config, *a, **k)) or built[-1])
+    run_dir, argv = _cli_run(tmp_path)
+    creation_config = json.loads(open(argv[1]).read())
+    written = cds.build_dataset(cds.build_parser().parse_args(argv + extra + ["-n", "2"]),
+                                creation_config)
+    assert written >= 2 and len(list((run_dir / "generated_images").glob("**/*.png"))) >= 2
+    assert [g.quantized for g in built] == [bool(extra)]
+    if not extra:
+        cds.build_dataset(cds.build_parser().parse_args(argv + ["-n", "2"]),
+                          {**creation_config, "quantize": True})
+        assert [g.quantized for g in built] == [False, True]
 
 
 def test_has_class_rule_matches_opencv():

@@ -108,8 +108,8 @@ def test_reference_keys_and_config_keys():
         assert key in keys, key
     assert net.decoder_blocks[0].upsample.conv.weight.shape == (128, 128, 2, 2)
     DocUFCN(num_classes=3, s2d_stem=1, s2d_tail=True)  # accepted, plain layout
-    with pytest.raises(NotImplementedError, match="remat"):
-        DocUFCN(num_classes=3, remat=True)
+    # remat (once unported) keeps the parameter and buffer layout
+    assert set(DocUFCN(num_classes=3, remat=True).state_dict()) == keys
     with pytest.raises(NotImplementedError):
         get_doc_ufcn("unet")
 
@@ -133,3 +133,73 @@ def test_init_weights_is_lecun_normal():
     assert abs(w.std().item() * np.sqrt(fan_in) - 1.0) < 0.05
     assert w.abs().max().item() <= 2.0 / 0.8796256610342398 / np.sqrt(fan_in) + 1e-6
     assert float(net.classifier.bias.abs().sum()) == 0.0
+
+
+def _train_step(net, x, weights, seed):
+    """One train-mode forward and backward of sum(logits * weights), dropout
+    drawn from `seed`: the gradients by state-dict key."""
+    net.train()
+    net.zero_grad()
+    torch.manual_seed(seed)
+    (net(x) * weights).sum().backward()
+    return {k: p.grad.clone() for k, p in net.named_parameters()}
+
+
+@pytest.mark.parametrize("version", ["base", "pixelshuffle"])
+def test_remat_gradients_equal_and_running_stats_move_once(version):
+    """remat: true recomputes each block in the backward: the same dropout
+    masks (RNG state preserved), the same gradients (1e-6 relative), and
+    BatchNorm's running statistics updated once per step, as without it."""
+    _, variables = jax_variables(version)
+    plain = port_model(version, variables)
+    remat = get_doc_ufcn(version)(num_classes=NUM_CLASSES, feature_sizes=FEATURES, remat=True)
+    remat.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(_inputs()).permute(0, 3, 1, 2)
+    weights = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, NUM_CLASSES, 32, 32)).astype(np.float32))
+    for seed in (0, 1):  # two steps: the second starts from moved statistics
+        g_plain = _train_step(plain, x, weights, seed)
+        g_remat = _train_step(remat, x, weights, seed)
+        for k, ref in g_plain.items():
+            err = (g_remat[k] - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+            assert err <= 1e-6, (k, float(err))
+    for k, ref in plain.state_dict().items():
+        torch.testing.assert_close(remat.state_dict()[k], ref, rtol=0, atol=0, msg=k)
+    assert int(remat.encoder_blocks[0][0].bn.num_batches_tracked) == 2
+
+
+def test_remat_gradients_match_jax_remat():
+    """The port's remat step against the JAX package's `remat=True` step, in
+    float64 on both sides (no dropout: the two packages draw other masks):
+    every gradient within 1e-6 of its tensor's largest; a conv bias that
+    feeds train-mode BatchNorm has an exact gradient of 0 (the batch mean
+    removes it), so its rounding noise is held to 1e-6 of the step's largest."""
+    from synthesis_in_style_tpu_torch.utils.checkpoint import doc_ufcn_params_from_jax as conv
+
+    model, variables = jax_variables("no_dropout", remat=True)
+    x = _inputs()
+    weights = np.random.default_rng(4).standard_normal((2, 32, 32, NUM_CLASSES))
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+
+        def loss(params):
+            logits, _ = model.apply({"params": params, "batch_stats": v64["batch_stats"]},
+                                    jnp.asarray(x, jnp.float64), train=True,
+                                    mutable=["batch_stats"])
+            return jnp.sum(logits * weights)
+
+        grads = jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss))(v64["params"]))
+    ref = conv({"params": grads, "batch_stats": variables["batch_stats"]})
+    net = get_doc_ufcn("no_dropout")(num_classes=NUM_CLASSES, feature_sizes=FEATURES,
+                                      remat=True)
+    net.load_state_dict(doc_ufcn_params_from_jax(variables))
+    net.double()
+    got = _train_step(net, torch.from_numpy(x).double().permute(0, 3, 1, 2),
+                      torch.from_numpy(weights).permute(0, 3, 1, 2), 0)
+    assert sorted(got) == sorted(k for k in ref if not k.startswith(("bn", "num")) and
+                                 "running" not in k and "num_batches" not in k)
+    largest = max(float(r.abs().max()) for r in ref.values() if r.is_floating_point())
+    for k, g in got.items():
+        r = ref[k].double()
+        scale = largest if k.endswith("conv.bias") else r.abs().max()
+        assert (g - r).abs().max() <= 1e-6 * scale, k

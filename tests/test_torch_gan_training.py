@@ -193,12 +193,18 @@ def test_cli_trains_snapshots_and_feeds_the_dataset_path(tmp_path):
 @pytest.mark.parametrize("extra", [["--wandb-project-name", "p"],
                                    ["--mpi-backend", "gloo", "--local_rank", "1"],
                                    ["--local_rank", "1"]])
-def test_cli_raises_on_what_is_not_ported(tmp_path, extra):
-    """wandb, and a positive rank with or without a backend (more than one
-    process, ROADMAP item 11); `--mpi-backend` alone and `--local_rank 0`
-    are the single-process run (tests/test_torch_cli_flags.py)."""
+def test_cli_raises_on_what_is_not_ported(tmp_path, extra, monkeypatch):
+    """wandb (not ported); and a positive rank with or without a backend that
+    no launcher announced (more than one process is ported: torchrun sets
+    WORLD_SIZE and RANK, tests/test_torch_distributed.py), which the launch
+    refuses; `--mpi-backend` alone and `--local_rank 0` are the
+    single-process run (tests/test_torch_cli_flags.py)."""
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
     data = _write_run_inputs(tmp_path, n_images=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    expected = (NotImplementedError, "ROADMAP") if "--wandb-project-name" in extra else (
+        RuntimeError, "torchrun")
+    with pytest.raises(expected[0], match=expected[1]):
         _run_cli(data, tmp_path / "logs", *extra)
 
 

@@ -131,13 +131,29 @@ EVALUATION_MODULES = (
     "synthesis_in_style_tpu_torch.data.coco_dataset",
 )
 
+# the int8 serving paths, DocUFCN remat, the sustained-synthesis run and
+# training in more than one process
+OPTIONS_MODULES = (
+    "synthesis_in_style_tpu_torch.ops.quant",
+    "synthesis_in_style_tpu_torch.ops.cuda.int8_conv",
+    "synthesis_in_style_tpu_torch.models.doc_ufcn_quant",
+    "synthesis_in_style_tpu_torch.models.doc_ufcn",
+    "synthesis_in_style_tpu_torch.segmentation.analysis_segmenter",
+    "synthesis_in_style_tpu_torch.scripts.sustained_synthesis",
+    "synthesis_in_style_tpu_torch.parallel",
+    "synthesis_in_style_tpu_torch.parallel.distributed",
+    "synthesis_in_style_tpu_torch.data.loader",
+    "synthesis_in_style_tpu_torch.core.extensions",
+    "synthesis_in_style_tpu_torch.losses.segmentation",
+)
+
 _IMPORT_LINE = re.compile(
     r"^\s*(?:import|from)\s+(cv2|jax|matplotlib|pandas|synthesis_in_style_tpu)(?:\s|\.|$)")
 
 
 @pytest.mark.parametrize("module", HOST_ROUTE_MODULES + DISCOVERY_MODULES + CAPSTONE_MODULES
                          + SWAGAN_EMANET_MODULES + DATASET_GAN_MODULES
-                         + AUTOENCODER_MODULES + EVALUATION_MODULES)
+                         + AUTOENCODER_MODULES + EVALUATION_MODULES + OPTIONS_MODULES)
 def test_host_route_modules_import_no_cv2_and_no_jax(module):
     """No import line of the module names cv2, jax, matplotlib, pandas or
     the JAX package, and it imports where they are blocked."""

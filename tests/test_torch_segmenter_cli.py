@@ -202,12 +202,23 @@ def test_throughput_mode_matches_the_jax_cli(trained, bucket_quantum):
 
 
 @pytest.mark.parametrize("extra", [["--quantize"], ["-vis", "--quantize"]])
-def test_analyze_not_ported_flags_raise(trained, extra):
+def test_analyze_not_ported_flags_raise(trained, extra, monkeypatch):
+    """--quantize (once unported) serves the DocUFCN snapshot in w8a8 int8:
+    the sweep's four runs, each page scored, through the quantized network."""
+    from synthesis_in_style_tpu_torch.models import doc_ufcn_quant
+
     root, _ = trained
     snapshot = root / "logs" / "run" / "checkpoints" / "iter_00000003.pt"
-    args = analyze.parse_and_check_arguments(_analyze_argv(root, snapshot, "x", "-d", "cpu", *extra))
-    with pytest.raises(NotImplementedError):
-        analyze.main(args)
+    calls = []
+    real = doc_ufcn_quant.quantized_forward
+    monkeypatch.setattr(doc_ufcn_quant, "quantized_forward",
+                        lambda *a: calls.append(1) or real(*a))
+    out = "q" + str(len(extra))
+    analyze.main(analyze.parse_and_check_arguments(
+        _analyze_argv(root, snapshot, out, "-d", "cpu", *extra)))
+    runs = json.loads((root / out / "results.json").read_text())["runs"]
+    assert len(runs) == 4 and all(len(run["confusion_matrices"]) == 2 for run in runs)
+    assert calls
 
 
 def test_analyze_serving_dtype_with_quantize_raises(trained):
@@ -255,11 +266,17 @@ def test_area_filter_needs_the_device_filter(trained, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["--wandb-project-name", "p"], ["--local_rank", "1"]])
-def test_train_not_ported_flags_raise(trained, extra):
-    """wandb, and a positive rank (more than one process, ROADMAP item 11);
-    `--local_rank 0` is the single-process run (tests/test_torch_cli_flags.py)."""
+def test_train_not_ported_flags_raise(trained, extra, monkeypatch):
+    """wandb (not ported); a positive rank that no launcher announced, which
+    the launch refuses (more than one process is ported: torchrun sets
+    WORLD_SIZE and RANK, tests/test_torch_distributed.py); `--local_rank 0`
+    is the single-process run (tests/test_torch_cli_flags.py)."""
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
     root, _ = trained
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    expected = (NotImplementedError, "ROADMAP") if "--wandb-project-name" in extra else (
+        RuntimeError, "torchrun")
+    with pytest.raises(expected[0], match=expected[1]):
         _train(root, "never", *extra)
 
 
